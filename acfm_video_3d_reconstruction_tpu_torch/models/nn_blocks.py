@@ -1,0 +1,109 @@
+"""Shared building blocks (NCHW inside), mirroring the reference's
+net_blocks.py / networks.py as the JAX package's models/nn_blocks.py does.
+
+BatchNorm follows flax's constants: momentum 0.99 (torch momentum 0.01),
+eps 1e-5. Initialisation follows the JAX package's initialisers
+(`init_weights`): flax's lecun_normal kernels and zero biases by default,
+N(0, 0.02) in ConvBNLeaky / FCBNLeaky, and each head's own override.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_MOMENTUM = 0.01  # flax BatchNorm momentum 0.99
+
+
+def lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
+    """flax lecun_normal: truncated normal (+-2 std), variance 1/fan_in."""
+    fan_in = w[0].numel()
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, gen: torch.Generator) -> None:
+    """flax default initialisers over a module tree, then each submodule's
+    own `init_override(gen)`."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            lecun_normal_(m.weight, gen)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d, nn.LayerNorm)):
+            m.reset_parameters()
+    for m in module.modules():
+        if hasattr(m, "init_override"):
+            m.init_override(gen)
+
+
+class ConvBNLeaky(nn.Module):
+    """Conv (padding (k-1)//2) -> BN -> LeakyReLU(0.2); N(0, 0.02) init."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1):
+        super().__init__()
+        pad = (kernel_size - 1) // 2
+        self.conv = nn.Conv2d(cin, cout, kernel_size, stride, pad)
+        self.bn = nn.BatchNorm2d(cout, momentum=BN_MOMENTUM)
+
+    def init_override(self, gen):
+        nn.init.normal_(self.conv.weight, 0.0, 0.02, generator=gen)
+
+    def forward(self, x):
+        return F.leaky_relu(self.bn(self.conv(x)), 0.2)
+
+
+class FCBNLeaky(nn.Module):
+    """Linear -> BN1d -> LeakyReLU(0.2); N(0, 0.02) init."""
+
+    def __init__(self, nin: int, nout: int):
+        super().__init__()
+        self.fc = nn.Linear(nin, nout)
+        self.bn = nn.BatchNorm1d(nout, momentum=BN_MOMENTUM)
+
+    def init_override(self, gen):
+        nn.init.normal_(self.fc.weight, 0.0, 0.02, generator=gen)
+
+    def forward(self, x):
+        return F.leaky_relu(self.bn(self.fc(x)), 0.2)
+
+
+class FCStack(nn.Sequential):
+    """`nlayers` FCBNLeaky layers."""
+
+    def __init__(self, nin: int, nout: int, nlayers: int = 2):
+        super().__init__(*[FCBNLeaky(nin if i == 0 else nout, nout) for i in range(nlayers)])
+
+
+def conv3x3(cin: int, cout: int) -> nn.Conv2d:
+    """3x3 stride-1 conv with bias, padding 1."""
+    return nn.Conv2d(cin, cout, 3, 1, 1)
+
+
+class ResLayer2d(nn.Module):
+    """conv3x3+BN, LeakyReLU(0.01), conv3x3+BN, identity skip when the
+    channel count is unchanged, LeakyReLU(0.01). (The TPU package folds the
+    narrow convs 2x2 space-to-depth; that is the same plain conv.)"""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv1 = conv3x3(cin, cout)
+        self.bn1 = nn.BatchNorm2d(cout, momentum=BN_MOMENTUM)
+        self.conv2 = conv3x3(cout, cout)
+        self.bn2 = nn.BatchNorm2d(cout, momentum=BN_MOMENTUM)
+        self.skip = cin == cout
+
+    def forward(self, x):
+        out = F.leaky_relu(self.bn1(self.conv1(x)), 0.01)
+        out = self.bn2(self.conv2(out))
+        if self.skip:
+            out = out + x
+        return F.leaky_relu(out, 0.01)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """nn.Upsample(scale_factor=2, mode='bilinear'), align_corners=False."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)

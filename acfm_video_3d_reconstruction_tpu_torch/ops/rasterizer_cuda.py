@@ -1,0 +1,330 @@
+"""Binned rasterizer forward: the bin pass, the CUDA kernel's wrapper and
+its plain PyTorch version.
+
+Counterpart of acfm_video_3d_reconstruction_tpu/ops/rasterizer_tpu.py
+(forward half). The bin geometry is part of the semantics, not a tuning
+choice, because a bin keeps at most K faces and silently drops the rest:
+  * bins are the TPU layout's row strips (16 x 128 px at 256^2, _pick_tiles);
+  * K = round_up(min(K, F), 64), with K from auto_K;
+  * each (view, bin) keeps its overlapping faces in ascending face order,
+    so on overflow the lowest face indices win;
+  * the bin margin is sqrt(max(blur_radius, BLUR_RADIUS)) in both modes.
+So the port drops exactly the faces the TPU kernels drop.
+
+`rasterize_binned` runs the forward kernel csrc/raster_fwd.cu on a CUDA
+tensor and its plain PyTorch version (`forward_plain`) on a CPU tensor. It
+returns untiled (B, H, W) maps.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+
+from .cuda_build import load
+
+SIGMA = 1e-4
+# blur_radius = log(1/1e-4 - 1) * sigma (PyTorch3D blend defaults)
+BLUR_RADIUS = math.log(1.0 / 1e-4 - 1.0) * SIGMA
+BIG = 1e10  # empty z-buffer value
+K_CHUNK = 64  # the bin capacity is rounded up to a multiple of this
+
+# Kernel launches on the card, by mode; the plain version never counts.
+LAUNCHES = {"soft": 0, "hard": 0}
+
+
+class BinnedFrags(NamedTuple):
+    """Per-pixel forward outputs, each (B, H, W)."""
+
+    S: torch.Tensor            # sum of log(1 - p_f); mask = 1 - exp(S)
+    pix_to_face: torch.Tensor  # int32 argmin-z in-radius face, -1 = none
+    b0: torch.Tensor           # clipped renormalised barycentrics of it
+    b1: torch.Tensor
+    zbuf: torch.Tensor         # its depth, BIG = none
+
+
+# ---------------------------------------------------------------- binning --
+
+def _pick_tiles(image_size: int) -> tuple[int, int]:
+    """Bin shape: width 128 where it divides the image, height 16."""
+    tile_w = min(128, image_size)
+    while image_size % tile_w:
+        tile_w //= 2
+    tile_h = max(8, min(16, image_size // 2))
+    while image_size % tile_h:
+        tile_h //= 2
+    return tile_h, tile_w
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def auto_K(num_faces: int, image_size: int, requested: int) -> int:
+    """Bin capacity that cannot silently drop faces at small sizes: the
+    exact face count below 256^2, `requested` (192 covers a frame-filling
+    1280-face mesh) from 256^2 up."""
+    if num_faces <= requested or image_size >= 256:
+        return requested
+    return num_faces
+
+
+def _margin(blur_radius: float) -> float:
+    return math.sqrt(max(blur_radius, BLUR_RADIUS))
+
+
+def _tile_overlap(verts, faces, image_size, tile_h, tile_w, margin):
+    """(B, T, F) bool: face bbox (+margin) overlaps pixel bin t."""
+    xy = verts[:, faces.long(), :2]  # (B, F, 3, 2)
+    xmin = xy[..., 0].amin(-1) - margin
+    xmax = xy[..., 0].amax(-1) + margin
+    ymin = xy[..., 1].amin(-1) - margin
+    ymax = xy[..., 1].amax(-1) + margin
+
+    def extent(n, size):
+        start = torch.arange(n, device=verts.device) * size
+        lo = (2.0 * start.float() + 1.0) / image_size - 1.0
+        hi = (2.0 * (start + size - 1).float() + 1.0) / image_size - 1.0
+        return lo, hi
+
+    n_ty, n_tx = image_size // tile_h, image_size // tile_w
+    y0, y1 = extent(n_ty, tile_h)
+    x0, x1 = extent(n_tx, tile_w)
+    ty0, ty1 = y0.repeat_interleave(n_tx), y1.repeat_interleave(n_tx)
+    tx0, tx1 = x0.repeat(n_ty), x1.repeat(n_ty)
+    return (
+        (xmin[:, None, :] <= tx1[None, :, None])
+        & (xmax[:, None, :] >= tx0[None, :, None])
+        & (ymin[:, None, :] <= ty1[None, :, None])
+        & (ymax[:, None, :] >= ty0[None, :, None])
+    )
+
+
+def bin_overflow_counts(verts, faces, image_size: int, K: int,
+                        margin: float = BLUR_RADIUS) -> torch.Tensor:
+    """(B, T) number of faces each bin drops at capacity K."""
+    th, tw = _pick_tiles(image_size)
+    ov = _tile_overlap(verts, faces, image_size, th, tw, margin)
+    return torch.clamp(ov.sum(-1) - K, min=0)
+
+
+def _face_tables(verts, faces, image_size, tile_h, tile_w, K, margin):
+    """Per-bin compacted face tables.
+
+    Returns (table (B, T, K, 9) f32 rows [ax ay bx by cx cy za zb zc],
+    idx (B, T, K) int32 face ids, -1 past the bin's count). The k-th
+    overlapping face of a bin lands in slot k (inclusive cumsum - 1), so
+    slots hold faces in ascending order and faces past K are dropped:
+    O(B*T*F) work, the same idx as the TPU binning's compare-reduce.
+    """
+    ov = _tile_overlap(verts, faces, image_size, tile_h, tile_w, margin)
+    B, T, F = ov.shape
+    c = torch.cumsum(ov.to(torch.int32), dim=-1)
+    pos = torch.where(ov & (c <= K), c - 1, K).long()  # slot K = dump
+    idx = torch.full((B, T, K + 1), -1, dtype=torch.int32, device=verts.device)
+    face_ids = torch.arange(F, dtype=torch.int32, device=verts.device)
+    idx.scatter_(2, pos, face_ids.expand(B, T, F))
+    idx = idx[..., :K].contiguous()
+
+    fv = verts[:, faces.long()]  # (B, F, 3, 3)
+    comp = torch.cat([fv[..., :, :2].reshape(B, F, 6), fv[..., :, 2]], dim=-1)
+    safe = idx.clamp(min=0).reshape(B, T * K, 1).long().expand(-1, -1, 9)
+    table = torch.gather(comp, 1, safe).reshape(B, T, K, 9)
+    return table, idx
+
+
+# ------------------------------------------------------- plain PyTorch path --
+
+def _bin_pixels(n_t, image_size, tile_h, tile_w, device):
+    """(T, P) pixel-centre NDC coords (x, y) of each bin's pixels, row-major."""
+    n_bx = image_size // tile_w
+    t = torch.arange(n_t, device=device)[:, None]
+    p = torch.arange(tile_h * tile_w, device=device)[None, :]
+    y = (t // n_bx) * tile_h + p // tile_w
+    x = (t % n_bx) * tile_w + p % tile_w
+    px = (2.0 * x.float() + 1.0) / image_size - 1.0
+    py = (2.0 * y.float() + 1.0) / image_size - 1.0
+    return px, py
+
+
+def _fma(a, b, c):
+    """float32 a*b + c with one rounding (the f64 product is exact)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _seg_d2(ux, uy, vx, vy, px, py):
+    ex, ey = vx - ux, vy - uy
+    wx, wy = px - ux, py - uy
+    ee = torch.clamp(_fma(ex, ex, ey * ey), min=1e-12)
+    t = torch.clamp(_fma(wx, ex, wy * ey) / ee, 0.0, 1.0)
+    dx = _fma(-t, ex, wx)
+    dy = _fma(-t, ey, wy)
+    return _fma(dx, dx, dy * dy)
+
+
+def _face_geometry(c, px, py, sigma, blur_radius, soft):
+    """The kernel's per-(pixel, face) arithmetic, in the same order and
+    with the same fused multiply-adds (see csrc/raster_fwd.cu).
+
+    c: (..., 9) face rows broadcast against px/py. Returns (log term, z,
+    b0, b1, in_radius).
+    """
+    ax, ay, bx, by, cx, cy, za, zb, zc = c.unbind(-1)
+    w0 = _fma(bx - px, cy - py, -((by - py) * (cx - px)))
+    w1 = _fma(cx - px, ay - py, -((cy - py) * (ax - px)))
+    w2 = _fma(ax - px, by - py, -((ay - py) * (bx - px)))
+    area = _fma(bx - ax, cy - ay, -((by - ay) * (cx - ax)))
+    denom = torch.where(torch.abs(area) < 1e-12, torch.full_like(area, 1e-12), area)
+    b0, b1, b2 = w0 / denom, w1 / denom, w2 / denom
+    inside = (b0 >= 0.0) & (b1 >= 0.0) & (b2 >= 0.0)
+
+    b0c, b1c, b2c = (torch.clamp(v, 0.0, 1.0) for v in (b0, b1, b2))
+    s = torch.clamp(b0c + b1c + b2c, min=1e-12)
+    b0c, b1c, b2c = b0c / s, b1c / s, b2c / s
+    z = _fma(b2c, zc, _fma(b0c, za, b1c * zb))
+
+    if soft:
+        d2 = torch.minimum(
+            torch.minimum(_seg_d2(ax, ay, bx, by, px, py), _seg_d2(bx, by, cx, cy, px, py)),
+            _seg_d2(cx, cy, ax, ay, px, py),
+        )
+        signed = torch.where(inside, -d2, d2)
+        in_radius = inside | (signed < blur_radius)
+        v = signed / sigma
+        log_sig = torch.clamp(v, max=0.0) - torch.log1p(torch.exp(-torch.abs(v)))
+        log1mp = torch.where(in_radius, log_sig, torch.zeros_like(v))
+    else:
+        in_radius = inside
+        log1mp = torch.where(inside, torch.full_like(z, -16.0), torch.zeros_like(z))
+    return log1mp, z, b0c, b1c, in_radius
+
+
+def _untile(x, image_size, tile_h, tile_w):
+    """(B, T, th*tw, ...) -> (B, H, W, ...)."""
+    B, rest = x.shape[0], x.shape[3:]
+    n_by, n_bx = image_size // tile_h, image_size // tile_w
+    x = x.reshape(B, n_by, n_bx, tile_h, tile_w, *rest).transpose(2, 3)
+    return x.reshape(B, image_size, image_size, *rest)
+
+
+def forward_plain(table, idx, image_size, tile_h, tile_w, sigma, blur_radius,
+                  soft, slot_chunk: int = 8) -> BinnedFrags:
+    """Plain PyTorch version of the kernel: the same binned function, walked
+    over the slots `slot_chunk` at a time so it fits in memory at full width.
+
+    Within a chunk the z-buffer takes the first minimal slot and across
+    chunks a strict <, which equals the kernel's slot-by-slot strict <.
+    S is summed chunk by chunk (another order than the kernel's).
+    """
+    B, T, K, _ = table.shape
+    P = tile_h * tile_w
+    px, py = _bin_pixels(T, image_size, tile_h, tile_w, table.device)
+    px, py = px[None, :, :, None], py[None, :, :, None]  # (1, T, P, 1)
+    valid_all = idx >= 0
+    S = table.new_zeros(B, T, P)
+    zbuf = table.new_full((B, T, P), BIG)
+    b0 = table.new_zeros(B, T, P)
+    b1 = table.new_zeros(B, T, P)
+    slot = torch.full((B, T, P), -1, dtype=torch.long, device=table.device)
+    n_valid = int(valid_all.sum(-1).max())
+    for k0 in range(0, n_valid, slot_chunk):
+        c = table[:, :, None, k0:k0 + slot_chunk, :]  # (B, T, 1, kc, 9)
+        valid = valid_all[:, :, None, k0:k0 + slot_chunk]
+        log1mp, z, bb0, bb1, in_r = _face_geometry(c, px, py, sigma, blur_radius, soft)
+        S = S + torch.where(valid, log1mp, torch.zeros_like(log1mp)).sum(-1)
+        zm = torch.where(in_r & valid, z, torch.full_like(z, BIG))
+        j = torch.argmin(zm, dim=-1, keepdim=True)  # first minimal slot
+        z_best = torch.gather(zm, -1, j)[..., 0]
+        better = z_best < zbuf
+        zbuf = torch.where(better, z_best, zbuf)
+        b0 = torch.where(better, torch.gather(bb0, -1, j)[..., 0], b0)
+        b1 = torch.where(better, torch.gather(bb1, -1, j)[..., 0], b1)
+        slot = torch.where(better, j[..., 0] + k0, slot)
+    covered = slot >= 0
+    p2f = torch.gather(idx, 2, slot.clamp(min=0).reshape(B, T, P).to(torch.long))
+    p2f = torch.where(covered, p2f, torch.full_like(p2f, -1))
+    return BinnedFrags(*(_untile(v, image_size, tile_h, tile_w) for v in (S, p2f, b0, b1, zbuf)))
+
+
+# ------------------------------------------------------------- CUDA kernel --
+
+def _library():
+    lib = load("raster_fwd.cu")
+    fn = lib.acfm_raster_fwd
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def forward_cuda(table, idx, image_size, tile_h, tile_w, sigma, blur_radius,
+                 soft) -> BinnedFrags:
+    """Launch csrc/raster_fwd.cu on the bin tables (CUDA tensors)."""
+    if not (table.is_cuda and idx.is_cuda):
+        raise ValueError("forward_cuda takes CUDA tensors")
+    if table.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise ValueError(f"table f32 / idx int32 expected, got {table.dtype}/{idx.dtype}")
+    B, T, K, row = table.shape
+    if row != 9 or idx.shape != (B, T, K):
+        raise ValueError(f"bad table {tuple(table.shape)} / idx {tuple(idx.shape)}")
+    if image_size % tile_h or image_size % tile_w or \
+            T != (image_size // tile_h) * (image_size // tile_w):
+        raise ValueError(f"bins {tile_h}x{tile_w} x {T} do not tile {image_size}^2")
+    fn = _library()
+    table = table.contiguous()
+    idx = idx.contiguous()
+    counts = (idx >= 0).sum(-1, dtype=torch.int32).contiguous()
+    shape = (B, image_size, image_size)
+    out = BinnedFrags(
+        S=torch.empty(shape, dtype=torch.float32, device=table.device),
+        pix_to_face=torch.empty(shape, dtype=torch.int32, device=table.device),
+        b0=torch.empty(shape, dtype=torch.float32, device=table.device),
+        b1=torch.empty(shape, dtype=torch.float32, device=table.device),
+        zbuf=torch.empty(shape, dtype=torch.float32, device=table.device),
+    )
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = fn(table.data_ptr(), idx.data_ptr(), counts.data_ptr(),
+                 *(t.data_ptr() for t in out), B, T, K, image_size, tile_h,
+                 tile_w, sigma, blur_radius, int(soft), stream)
+    if err:
+        raise RuntimeError(f"raster_fwd kernel launch failed: CUDA error {err}")
+    LAUNCHES["soft" if soft else "hard"] += 1
+    return out
+
+
+# ------------------------------------------------------------------ entry --
+
+def bin_faces(verts, faces, image_size: int, K: int, blur_radius: float):
+    """The bin pass: (table, idx, tile_h, tile_w) at capacity
+    round_up(min(K, F), 64), for verts (B, V, 3) projected, faces (F, 3)."""
+    K = _round_up(min(K, faces.shape[0]), K_CHUNK)
+    th, tw = _pick_tiles(image_size)
+    table, idx = _face_tables(verts.float(), faces, image_size, th, tw, K,
+                              _margin(blur_radius))
+    return table, idx, th, tw
+
+
+def rasterize_binned(verts: torch.Tensor, faces: torch.Tensor, image_size: int,
+                     K: int, sigma: float = SIGMA, blur_radius: float = BLUR_RADIUS,
+                     soft: bool = True) -> BinnedFrags:
+    """Bin, then rasterize. verts (B, V, 3) projected, faces (F, 3).
+
+    Launches the CUDA kernel for a CUDA tensor and runs the plain version
+    for a CPU tensor. Hard mode takes no vertex gradient (it detaches). The
+    kernel has no backward yet: soft mode on the card with a vertex gradient
+    raises rather than detach silently.
+    """
+    if not soft:
+        verts = verts.detach()
+    if verts.is_cuda and soft and verts.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "the soft rasterizer's CUDA backward is not ported yet (training "
+            "slice); run under torch.no_grad()/inference_mode or on the CPU"
+        )
+    table, idx, th, tw = bin_faces(verts, faces, image_size, K, blur_radius)
+    fwd = forward_cuda if verts.is_cuda else forward_plain
+    return fwd(table, idx, image_size, th, tw, sigma, blur_radius, soft)

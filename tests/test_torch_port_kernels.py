@@ -1,0 +1,110 @@
+"""The binned rasterizer's CUDA kernel against its plain PyTorch version.
+
+This file imports neither JAX nor the JAX package, so it runs on a GPU
+machine without them:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_kernels.py
+
+Tests marked `cuda` skip without a card (the kernel has no CPU mode).
+"""
+import numpy as np
+import pytest
+import torch
+
+from acfm_video_3d_reconstruction_tpu_torch.geometry import camera, icosphere
+from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
+
+torch.set_num_threads(1)
+
+IMG = 32
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the rasterizer kernel runs only on the card")
+    return torch.device("cuda")
+
+
+def _bench_scene(B=4, size=256, seed=0, subdivide=3):
+    """An icosphere under random seeded weak-perspective cameras."""
+    v, f = icosphere.icosphere(subdivide)
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    cams = np.concatenate(
+        [rng.uniform(0.6, 0.9, (B, 1)), rng.uniform(-0.1, 0.1, (B, 2)), q], 1
+    ).astype(np.float32)
+    proj = camera.orthographic_proj_withz(
+        torch.from_numpy(v.astype(np.float32))[None].repeat(B, 1, 1) * 0.7,
+        torch.from_numpy(cams), offset_z=5.0,
+    )
+    return proj, torch.from_numpy(f.astype(np.int64)), size
+
+
+def _small_scene():
+    v, f = icosphere.icosphere(2)
+    proj = camera.orthographic_proj_withz(
+        torch.tensor(v, dtype=torch.float32)[None] * 0.7,
+        torch.tensor([[0.9, 0.05, -0.05, 1.0, 0.0, 0.0, 0.0]]), offset_z=5.0)
+    return proj, torch.tensor(f)
+
+
+class TestKernelWrapper:
+    def test_cuda_launcher_refuses_cpu_tensors(self):
+        proj, faces = _small_scene()
+        th, tw = rc._pick_tiles(IMG)
+        tab, idx = rc._face_tables(proj, faces, IMG, th, tw, 320, 0.1)
+        with pytest.raises(ValueError):
+            rc.forward_cuda(tab, idx, IMG, th, tw, rc.SIGMA, rc.BLUR_RADIUS, True)
+
+    @pytest.mark.parametrize("soft", [True, False], ids=["soft", "hard"])
+    def test_cpu_tensor_runs_plain_version(self, soft):
+        """On a CPU tensor the entry runs the plain version of the bin
+        tables, bit for bit, and launches no kernel."""
+        proj, faces = _small_scene()
+        blur = rc.BLUR_RADIUS if soft else 0.0
+        before = dict(rc.LAUNCHES)
+        got = rc.rasterize_binned(proj, faces, IMG, 320, blur_radius=blur, soft=soft)
+        table, idx, th, tw = rc.bin_faces(proj, faces, IMG, 320, blur)
+        want = rc.forward_plain(table, idx, IMG, th, tw, rc.SIGMA, blur, soft)
+        assert rc.LAUNCHES == before
+        for name, a, b in zip(want._fields, got, want):
+            assert torch.equal(a, b), name
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("soft", [True, False], ids=["soft", "hard"])
+    @pytest.mark.parametrize("size,subdivide", [(256, 3), (64, 3), (96, 2), (32, 2), (8, 1)])
+    def test_kernel_matches_plain(self, cuda_device, soft, size, subdivide):
+        """The CUDA kernel against its plain version on the card: mask atol
+        2e-4, pix_to_face > 99.9%, barycentrics atol 1e-4 and zbuf atol 1e-5
+        where the faces agree. 256^2 is the main path; 64^2 with 1280 faces
+        has the exact capacity K=1280 (bins longer than one shared-memory
+        stage); 96^2, 32^2 and 8^2 give bins of 512 and 64 pixels."""
+        proj, faces, size = _bench_scene(B=4, size=size, subdivide=subdivide)
+        proj, faces = proj.to(cuda_device), faces.to(cuda_device)
+        K = rc.auto_K(faces.shape[0], size, 192)
+        blur = rc.BLUR_RADIUS if soft else 0.0
+        before = dict(rc.LAUNCHES)
+        kern = rc.rasterize_binned(proj, faces, size, K, blur_radius=blur, soft=soft)
+        table, idx, th, tw = rc.bin_faces(proj, faces, size, K, blur)
+        plain = rc.forward_plain(table, idx, size, th, tw, rc.SIGMA, blur, soft)
+        torch.cuda.synchronize()
+        mode = "soft" if soft else "hard"
+        assert rc.LAUNCHES[mode] == before[mode] + 1
+        agree = kern.pix_to_face == plain.pix_to_face
+        assert agree.float().mean().item() > 0.999
+        if soft:
+            torch.testing.assert_close(1 - torch.exp(kern.S), 1 - torch.exp(plain.S),
+                                       atol=2e-4, rtol=0)
+        hit = agree & (plain.pix_to_face >= 0)
+        torch.testing.assert_close(kern.b0[hit], plain.b0[hit], atol=1e-4, rtol=0)
+        torch.testing.assert_close(kern.b1[hit], plain.b1[hit], atol=1e-4, rtol=0)
+        torch.testing.assert_close(kern.zbuf[hit], plain.zbuf[hit], atol=1e-5, rtol=0)
+
+    @pytest.mark.cuda
+    def test_soft_kernel_refuses_vertex_gradient(self, cuda_device):
+        proj, faces, size = _bench_scene(B=1)
+        proj = proj.to(cuda_device).requires_grad_(True)
+        with pytest.raises(NotImplementedError):
+            rc.rasterize_binned(proj, faces.to(cuda_device), size, 192, soft=True)

@@ -1,0 +1,256 @@
+"""The port's rasterizer against the JAX package's.
+
+Same scene as tests/test_rasterizer_tpu.py (icosphere(2), 32^2, two
+cameras). The port's binning must give the TPU binning's idx tables
+exactly; its plain soft/hard forward must meet that file's tolerances
+against the Pallas kernel in interpret mode (mask atol 2e-4, pix_to_face
+agreeing on > 99.9% of pixels, barycentrics atol 1e-4) and against the
+dense pure-JAX reference. The CUDA kernel's own tests are in
+tests/test_torch_port_kernels.py.
+"""
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from acfm_video_3d_reconstruction_tpu.geometry import camera, icosphere
+from acfm_video_3d_reconstruction_tpu.ops import rasterizer as jref
+from acfm_video_3d_reconstruction_tpu.ops import rasterizer_tpu as jtpu
+from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer as ras
+from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
+
+torch.set_num_threads(1)
+
+IMG = 32
+
+
+@pytest.fixture(scope="module")
+def scene():
+    v, f = icosphere.icosphere(2)
+    cams = jnp.asarray(
+        [
+            [0.9, 0.05, -0.05, 1.0, 0.0, 0.0, 0.0],
+            [0.7, -0.1, 0.1, 0.9238795, 0.0, 0.3826834, 0.0],
+        ]
+    )
+    proj = camera.orthographic_proj_withz(
+        jnp.asarray(v, jnp.float32)[None].repeat(2, 0) * 0.7, cams, offset_z=5.0
+    )
+    return np.asarray(proj), np.asarray(f, np.int32)
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x))
+
+
+class TestBinning:
+    @pytest.mark.parametrize("K", [320, 64])
+    def test_face_tables_match_tpu_binning(self, scene, K):
+        """Same idx (and face rows) as rasterizer_tpu._face_tables, at the
+        exact capacity and at a K small enough that bins overflow."""
+        proj, faces = scene
+        th, tw = rc._pick_tiles(IMG)
+        assert (th, tw) == jtpu._pick_tiles(IMG)
+        margin = rc._margin(rc.BLUR_RADIUS)
+        tab_j, idx_j = jtpu._face_tables(jnp.asarray(proj), jnp.asarray(faces), IMG,
+                                         th, tw, K, margin)
+        tab_t, idx_t = rc._face_tables(_t(proj), _t(faces), IMG, th, tw, K, margin)
+        np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+        valid = np.asarray(idx_j) >= 0
+        rows_j = np.swapaxes(np.asarray(tab_j), 2, 3)[..., :9]
+        np.testing.assert_array_equal(tab_t.numpy()[valid], rows_j[valid])
+        ovf_j = np.asarray(jtpu.bin_overflow_counts(jnp.asarray(proj), jnp.asarray(faces),
+                                                    IMG, K, margin))
+        ovf_t = rc.bin_overflow_counts(_t(proj), _t(faces), IMG, K, margin).numpy()
+        np.testing.assert_array_equal(ovf_t, ovf_j)
+        assert (ovf_t.max() > 0) == (K == 64)
+
+    def test_overflow_counts_match_at_256(self):
+        from acfm_video_3d_reconstruction_tpu_torch.geometry import camera as tcam
+
+        v, f = icosphere.icosphere(3)
+        rng = np.random.default_rng(0)
+        q = rng.normal(size=(2, 4))
+        cams = np.concatenate([rng.uniform(0.6, 0.9, (2, 1)), rng.uniform(-0.1, 0.1, (2, 2)),
+                               q / np.linalg.norm(q, axis=1, keepdims=True)], 1)
+        proj = tcam.orthographic_proj_withz(
+            torch.tensor(v, dtype=torch.float32)[None].repeat(2, 1, 1) * 0.7,
+            torch.tensor(cams, dtype=torch.float32), offset_z=5.0)
+        faces, size = torch.tensor(f), 256
+        for K in (8, 192):
+            want = np.asarray(jtpu.bin_overflow_counts(jnp.asarray(proj.numpy()),
+                                                       jnp.asarray(faces.numpy()), size, K))
+            got = rc.bin_overflow_counts(proj, faces, size, K).numpy()
+            np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("size", [8, 32, 64, 96, 128, 256, 512])
+    def test_tiles_and_capacity_match(self, size):
+        assert rc._pick_tiles(size) == jtpu._pick_tiles(size)
+        for F in (80, 320, 1280):
+            assert rc.auto_K(F, size, 192) == jtpu.auto_K(F, size, 192)
+
+
+class TestPlainForward:
+    def test_soft_matches_pallas_interpret(self, scene):
+        proj, faces = scene
+        mask_j, p2f_j, vis_j = jtpu.soft_silhouette_tpu(
+            jnp.asarray(proj), jnp.asarray(faces), IMG, 320, interpret=True)
+        mask_t, p2f_t, vis_t = ras.soft_silhouette_vis(_t(proj), _t(faces), IMG,
+                                                       proj.shape[1])
+        np.testing.assert_allclose(mask_t.numpy(), np.asarray(mask_j), atol=2e-4)
+        assert (p2f_t.numpy() == np.asarray(p2f_j)).mean() > 0.999
+        np.testing.assert_array_equal(vis_t.numpy(), np.asarray(vis_j))
+
+    def test_hard_matches_pallas_interpret(self, scene):
+        proj, faces = scene
+        out_j = jtpu.hard_rasterize_tpu(jnp.asarray(proj), jnp.asarray(faces), IMG, 320,
+                                        interpret=True)
+        out_t = ras.hard_rasterize(_t(proj), _t(faces), IMG)
+        p2f_j = np.asarray(out_j.pix_to_face)
+        agree = out_t.pix_to_face.numpy() == p2f_j
+        assert agree.mean() > 0.999
+        both = agree & (p2f_j >= 0)
+        np.testing.assert_allclose(out_t.bary.numpy()[both], np.asarray(out_j.bary)[both],
+                                   atol=1e-4)
+        np.testing.assert_allclose(out_t.zbuf.numpy()[both], np.asarray(out_j.zbuf)[both],
+                                   atol=1e-5)
+        np.testing.assert_array_equal(out_t.mask.numpy(), np.asarray(out_j.mask))
+
+    def test_soft_matches_dense_reference(self, scene):
+        proj, faces = scene
+        mask_r, p2f_r = jref.soft_silhouette(jnp.asarray(proj), jnp.asarray(faces), IMG,
+                                             face_chunk=80, impl="ref")
+        mask_t, p2f_t = ras.soft_silhouette(_t(proj), _t(faces), IMG)
+        np.testing.assert_allclose(mask_t.numpy(), np.asarray(mask_r), atol=2e-4)
+        assert (p2f_t.numpy() == np.asarray(p2f_r)).mean() > 0.999
+
+    def test_hard_matches_dense_reference(self, scene):
+        proj, faces = scene
+        fr = jref.hard_rasterize(jnp.asarray(proj), jnp.asarray(faces), IMG, face_chunk=80)
+        p2f_r = np.asarray(fr.pix_to_face).reshape(2, IMG, IMG)
+        out_t = ras.hard_rasterize(_t(proj), _t(faces), IMG)
+        agree = out_t.pix_to_face.numpy() == p2f_r
+        assert agree.mean() > 0.999
+        both = agree & (p2f_r >= 0)
+        np.testing.assert_allclose(out_t.bary.numpy()[both],
+                                   np.asarray(fr.bary).reshape(2, IMG, IMG, 3)[both], atol=1e-4)
+
+    def test_slot_chunk_equals_slot_by_slot(self, scene):
+        """The chunked z-buffer equals the kernel's slot-by-slot strict <."""
+        proj, faces = scene
+        th, tw = rc._pick_tiles(IMG)
+        tab, idx = rc._face_tables(_t(proj), _t(faces), IMG, th, tw, 320,
+                                   rc._margin(rc.BLUR_RADIUS))
+        for soft in (True, False):
+            one = rc.forward_plain(tab, idx, IMG, th, tw, rc.SIGMA, rc.BLUR_RADIUS, soft, 1)
+            many = rc.forward_plain(tab, idx, IMG, th, tw, rc.SIGMA, rc.BLUR_RADIUS, soft, 8)
+            for name in ("pix_to_face", "b0", "b1", "zbuf"):
+                np.testing.assert_array_equal(getattr(many, name).numpy(),
+                                              getattr(one, name).numpy())
+            # S is summed in another order: f32 rounding only
+            np.testing.assert_allclose(many.S.numpy(), one.S.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "form", ["x*y-z*w", "a*b+c*d+e*f", "w-t*e", "x*x+y*y"],
+)
+def test_fma_forms_match_xla_cpu(form):
+    """The JAX references are compiled by XLA, whose CPU backend contracts
+    these products into FMAs; the port's rasterizer writes the same FMAs
+    out (rc._fma), which is what makes its p2f agree with JAX's. Exact on
+    20,000 random inputs."""
+    rng = np.random.default_rng(4)
+    a, b, c, d, e, f = (rng.uniform(-1, 1, 20000).astype(np.float32) for _ in range(6))
+    ta, tb, tc, td, te, tf = (torch.tensor(v) for v in (a, b, c, d, e, f))
+    jfn, want = {
+        "x*y-z*w": (lambda a, b, c, d: a * b - c * d,
+                    rc._fma(ta, tb, -(tc * td))),
+        "a*b+c*d+e*f": (lambda a, b, c, d, e, f: a * b + c * d + e * f,
+                        rc._fma(te, tf, rc._fma(ta, tb, tc * td))),
+        "w-t*e": (lambda a, b, c: a - b * c, rc._fma(-tb, tc, ta)),
+        "x*x+y*y": (lambda a, b: a * a + b * b, rc._fma(ta, ta, tb * tb)),
+    }[form]
+    n = jfn.__code__.co_argcount
+    got = np.asarray(jax.jit(jfn)(*(a, b, c, d, e, f)[:n]))
+    np.testing.assert_array_equal(want.numpy(), got)
+
+
+class TestPublicFunctions:
+    def test_soft_vis_tex_matches_jax(self, scene):
+        proj, faces = scene
+        rng = np.random.default_rng(0)
+        atlas = rng.random((2, faces.shape[0], 3, 3, 3)).astype(np.float32)
+        m_r, p_r, v_r, rgb_r, cov_r = jref.soft_silhouette_vis_tex(
+            jnp.asarray(proj), jnp.asarray(faces), jnp.asarray(atlas), IMG, proj.shape[1],
+            face_chunk=80, impl="ref")
+        m_t, p_t, v_t, rgb_t, cov_t = ras.soft_silhouette_vis_tex(
+            _t(proj), _t(faces), _t(atlas), IMG, proj.shape[1])
+        np.testing.assert_allclose(m_t.numpy(), np.asarray(m_r), atol=2e-4)
+        agree = p_t.numpy() == np.asarray(p_r)
+        assert agree.mean() > 0.999
+        np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_r))
+        np.testing.assert_array_equal(cov_t.numpy(), np.asarray(cov_r))
+        # nearest-cell lookups from barycentrics equal to ~1e-7: the same
+        # texel wherever the front face agrees
+        np.testing.assert_array_equal(rgb_t.numpy()[agree], np.asarray(rgb_r)[agree])
+
+    def test_render_texture_matches_jax(self, scene):
+        proj, faces = scene
+        rng = np.random.default_rng(1)
+        atlas = rng.random((2, faces.shape[0], 4, 4, 3)).astype(np.float32)
+        rgb_r, sil_r, p_r = jref.render_texture(jnp.asarray(proj), jnp.asarray(faces),
+                                                jnp.asarray(atlas), IMG, face_chunk=80,
+                                                impl="ref")
+        rgb_t, sil_t, p_t = ras.render_texture(_t(proj), _t(faces), _t(atlas), IMG)
+        agree = p_t.numpy() == np.asarray(p_r)
+        assert agree.mean() > 0.999
+        np.testing.assert_array_equal(sil_t.numpy(), np.asarray(sil_r))
+        np.testing.assert_array_equal(rgb_t.numpy()[agree], np.asarray(rgb_r)[agree])
+
+    def test_hard_visibility_matches_jax(self, scene):
+        proj, faces = scene
+        want = jref.hard_visibility(jnp.asarray(proj), jnp.asarray(faces), IMG,
+                                    proj.shape[1], face_chunk=80, impl="ref")
+        got = ras.hard_visibility(_t(proj), _t(faces), IMG, proj.shape[1])
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    def test_sample_atlas_and_visible_vertices_match(self):
+        rng = np.random.default_rng(2)
+        B, F, T, P, V = 2, 50, 3, 200, 40
+        atlas = rng.random((B, F, T, T, 3)).astype(np.float32)
+        p2f = rng.integers(-1, F, (B, P)).astype(np.int32)
+        bary = rng.dirichlet(np.ones(3), (B, P)).astype(np.float32)
+        faces = rng.integers(0, V, (F, 3)).astype(np.int32)
+        rgb_j, cov_j = jref.sample_atlas(jnp.asarray(atlas), jnp.asarray(p2f),
+                                         jnp.asarray(bary))
+        rgb_t, cov_t = ras.sample_atlas(_t(atlas), _t(p2f), _t(bary))
+        np.testing.assert_array_equal(rgb_t.numpy(), np.asarray(rgb_j))
+        np.testing.assert_array_equal(cov_t.numpy(), np.asarray(cov_j))
+        vis_j = jref.visible_vertices(jnp.asarray(p2f), jnp.asarray(faces), V)
+        vis_t = ras.visible_vertices(_t(p2f), _t(faces), V)
+        np.testing.assert_array_equal(vis_t.numpy(), np.asarray(vis_j))
+
+
+def test_port_imports_no_jax():
+    """Every module of the port imports without JAX or the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import acfm_video_3d_reconstruction_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "       or k == 'flax' or k.startswith('flax.')\n"
+        "       or k.split('.')[0] == 'acfm_video_3d_reconstruction_tpu']\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
