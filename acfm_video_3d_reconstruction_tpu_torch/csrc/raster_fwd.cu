@@ -40,17 +40,15 @@
 // and never touches a slot past the bin's count, so the work is the
 // data's sum over bins of count x pixels and not K x pixels.
 //
-// Numerics follow _face_geometry operation for operation, with IEEE
-// divides (no reciprocal-multiply). The JAX reference is compiled by XLA,
-// whose CPU backend contracts x*y - z*w into fma(x, y, -(z*w)), a*b + c*d +
-// e*f into fma(e, f, fma(a, b, c*d)) and w - t*e into fma(-t, e, w). Those
-// fused multiply-adds are written out here (__fmaf_rn) and in the plain
-// version, and every other contraction is off (--fmad=false): a one-ULP
-// change in a sub-area flips `inside`, the zero-area guard and the z-buffer
-// argmin at silhouette edges, edge-on faces and shared edges. log_sigmoid
-// is the stable min(x, 0) - log1p(exp(-|x|)) with IEEE expf/log1pf.
+// Numerics follow _face_geometry operation for operation; the shared
+// geometry (barycentrics, point-segment distances) and its fused multiply-
+// adds are in raster_geometry.cuh. z is fma(b2, zc, fma(b0, za, b1*zb)), as
+// XLA's CPU backend contracts a*b + c*d + e*f. log_sigmoid is the stable
+// min(x, 0) - log1p(exp(-|x|)) with IEEE expf/log1pf.
 
 #include <cuda_runtime.h>
+
+#include "raster_geometry.cuh"
 
 namespace {
 
@@ -58,19 +56,6 @@ constexpr int kRow = 9;          // floats per face-table row
 constexpr int kSlotChunk = 128;  // slots staged in shared memory at a time
 constexpr int kThreads = 256;    // pixels per block, one per thread
 constexpr float kBig = 1e10f;    // empty z-buffer value (rasterizer.py _BIG)
-
-__device__ __forceinline__ float clip01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
-
-__device__ __forceinline__ float seg_d2(float ux, float uy, float vx, float vy,
-                                        float px, float py) {
-  const float ex = vx - ux, ey = vy - uy;
-  const float wx = px - ux, wy = py - uy;
-  const float ee = fmaxf(__fmaf_rn(ex, ex, ey * ey), 1e-12f);
-  const float t = clip01(__fmaf_rn(wx, ex, wy * ey) / ee);
-  const float dx = __fmaf_rn(-t, ex, wx);
-  const float dy = __fmaf_rn(-t, ey, wy);
-  return __fmaf_rn(dx, dx, dy * dy);
-}
 
 template <bool SOFT>
 __global__ void __launch_bounds__(kThreads)
@@ -116,15 +101,10 @@ raster_fwd_kernel(const float* __restrict__ table, const int* __restrict__ idx,
       const float ax = c[0], ay = c[1], bx = c[2], by = c[3], cx = c[4], cy = c[5];
       const float za = c[6], zb = c[7], zc = c[8];
 
-      const float w0 = __fmaf_rn(bx - px, cy - py, -((by - py) * (cx - px)));
-      const float w1 = __fmaf_rn(cx - px, ay - py, -((cy - py) * (ax - px)));
-      const float w2 = __fmaf_rn(ax - px, by - py, -((ay - py) * (bx - px)));
-      const float area = __fmaf_rn(bx - ax, cy - ay, -((by - ay) * (cx - ax)));
-      const float denom = fabsf(area) < 1e-12f ? 1e-12f : area;
-      const float b0 = w0 / denom, b1 = w1 / denom, b2 = w2 / denom;
-      const bool inside = (b0 >= 0.0f) && (b1 >= 0.0f) && (b2 >= 0.0f);
+      const Bary bc = barycentric(ax, ay, bx, by, cx, cy, px, py);
+      const bool inside = is_inside(bc);
 
-      float b0c = clip01(b0), b1c = clip01(b1), b2c = clip01(b2);
+      float b0c = clip01(bc.b0), b1c = clip01(bc.b1), b2c = clip01(bc.b2);
       const float s = fmaxf(b0c + b1c + b2c, 1e-12f);
       b0c = b0c / s;
       b1c = b1c / s;
@@ -133,9 +113,9 @@ raster_fwd_kernel(const float* __restrict__ table, const int* __restrict__ idx,
 
       bool in_radius;
       if (SOFT) {
-        const float d2 = fminf(fminf(seg_d2(ax, ay, bx, by, px, py),
-                                     seg_d2(bx, by, cx, cy, px, py)),
-                               seg_d2(cx, cy, ax, ay, px, py));
+        const float d2 = fminf(fminf(segment(ax, ay, bx, by, px, py).d2,
+                                     segment(bx, by, cx, cy, px, py).d2),
+                               segment(cx, cy, ax, ay, px, py).d2);
         const float signed_d2 = inside ? -d2 : d2;
         in_radius = inside || (signed_d2 < blur_radius);
         if (in_radius) {

@@ -90,9 +90,11 @@ def safe_norm(x: torch.Tensor, dim=-1, keepdim: bool = False,
 
     sqrt(max(sum sq, eps^2)) equals the norm for norms >= eps and has
     gradient exactly 0 at the degenerate point (a collapsed edge under a
-    large deformation would otherwise give 0 * NaN).
+    large deformation would otherwise give 0 * NaN). torch.maximum splits
+    the gradient at sum sq == eps^2 as jnp.maximum does; clamp would not.
     """
-    return torch.sqrt(torch.clamp((x * x).sum(dim=dim, keepdim=keepdim), min=eps * eps))
+    sq = (x * x).sum(dim=dim, keepdim=keepdim)
+    return torch.sqrt(torch.maximum(sq, sq.new_tensor(eps * eps)))
 
 
 def uniform_laplacian_smoothing(verts: torch.Tensor, L: torch.Tensor) -> torch.Tensor:

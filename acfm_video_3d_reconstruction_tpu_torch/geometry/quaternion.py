@@ -31,7 +31,8 @@ def quat_conj(q: torch.Tensor) -> torch.Tensor:
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Unit-normalize along the last axis, finite gradient at q == 0."""
-    n = torch.sqrt(torch.clamp((q * q).sum(-1, keepdim=True), min=eps * eps))
+    sq = (q * q).sum(-1, keepdim=True)
+    n = torch.sqrt(torch.maximum(sq, sq.new_tensor(eps * eps)))
     return q / n
 
 

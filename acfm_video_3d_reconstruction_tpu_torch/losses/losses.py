@@ -63,7 +63,10 @@ def kp_l2_loss(kp_pred, kp_gt, reduce: bool = True):
 
 
 def hinge(x, margin: float):
-    return torch.clamp(x - margin, min=0.0)
+    # torch.maximum, not clamp: at x == margin it passes half the gradient,
+    # as jnp.maximum's VJP does (clamp passes all of it)
+    d = x - margin
+    return torch.maximum(d, d.new_zeros(()))
 
 
 def camera_loss(cam_pred, cam_gt, margin: float = 0.0):
@@ -88,4 +91,4 @@ def deform_l2reg(V):
 
 def entropy_loss(A):
     """Row entropy of a (K, V) probability matrix."""
-    return (-(A * torch.log(torch.clamp(A, min=1e-12))).sum(dim=1)).mean()
+    return (-(A * torch.log(torch.maximum(A, A.new_tensor(1e-12)))).sum(dim=1)).mean()

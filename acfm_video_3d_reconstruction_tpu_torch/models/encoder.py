@@ -11,20 +11,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .nn_blocks import BN_MOMENTUM, ConvBNLeaky, FCStack
+from .nn_blocks import BatchNorm2d, ConvBNLeaky, FCStack
 
 
 class BasicBlock(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(cout, momentum=BN_MOMENTUM)
+        self.bn1 = BatchNorm2d(cout)
         self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(cout, momentum=BN_MOMENTUM)
+        self.bn2 = BatchNorm2d(cout)
         self.downsample = stride != 1 or cin != cout
         if self.downsample:
             self.downsample_conv = nn.Conv2d(cin, cout, 1, stride, bias=False)
-            self.downsample_bn = nn.BatchNorm2d(cout, momentum=BN_MOMENTUM)
+            self.downsample_bn = BatchNorm2d(cout)
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
@@ -41,7 +41,7 @@ class ResNet18(nn.Module):
     def __init__(self):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, momentum=BN_MOMENTUM)
+        self.bn1 = BatchNorm2d(64)
         self.block_names = []
         cin = 64
         for i, feats in enumerate(self.stage_features):

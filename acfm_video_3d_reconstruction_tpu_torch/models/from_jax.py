@@ -12,6 +12,12 @@ Conventions:
   the first encoder FC takes an NHWC flatten in flax and an NCHW flatten
   here, so its input columns are permuted
   flax auto-names map explicitly (_rename).
+
+`convert` also holds a training step of the two against each other: the
+JAX step's updated `params` / `batch_stats` pair, converted, is compared
+with the port's `state_dict` after its own step from the same weights.
+Adam's moments start at zero on both sides, so no optimizer state needs
+carrying across.
 """
 from __future__ import annotations
 

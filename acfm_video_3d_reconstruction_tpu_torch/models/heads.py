@@ -25,7 +25,8 @@ class QuatPredictor(nn.Module):
 
     def forward(self, feat):
         q = self.fc(feat)
-        return q / torch.sqrt(torch.clamp((q * q).sum(-1, keepdim=True), min=1e-24))
+        sq = (q * q).sum(-1, keepdim=True)
+        return q / torch.sqrt(torch.maximum(sq, sq.new_tensor(1e-24)))
 
 
 class ScalePredictor(nn.Module):

@@ -41,16 +41,21 @@ def _unit_normalize(feat: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     # sqrt(max(sumsq, eps^2)) keeps the gradient finite at an all-zero
     # post-ReLU feature vector (0/0 otherwise); the forward equals the
     # reference's feat / (norm + eps) to within eps
-    norm = torch.sqrt(torch.clamp((feat ** 2).sum(dim=1, keepdim=True), min=eps * eps))
+    sq = (feat ** 2).sum(dim=1, keepdim=True)
+    norm = torch.sqrt(torch.maximum(sq, sq.new_tensor(eps * eps)))
     return feat / (norm + eps)
 
 
 class LPIPS(nn.Module):
-    """Spatial LPIPS map: (x, y) NHWC in [-1, 1] -> (B, H, W, 1)."""
+    """Spatial LPIPS map: (x, y) NHWC in [-1, 1] -> (B, H, W, 1).
+
+    Frozen, as in the JAX package (its weights are not among the trained
+    params): the parameters take no gradient, the inputs do."""
 
     def __init__(self):
         super().__init__()
         self.alex = AlexNetFeatures()
+        self.requires_grad_(False)
         self.register_buffer("shift", torch.tensor(_SHIFT).reshape(1, 3, 1, 1), persistent=False)
         self.register_buffer("scale", torch.tensor(_SCALE).reshape(1, 3, 1, 1), persistent=False)
 

@@ -60,6 +60,16 @@ class MeshNet(nn.Module):
             if m is not None:
                 init_weights(m, gen)
 
+    def train(self, mode: bool = True) -> "MeshNet":
+        """Train mode for the encoder and heads; the texture decoder stays in
+        eval mode, with its stored BatchNorm statistics, as the JAX forward
+        calls `model.textures(..., train=False)` while training. Its weights
+        still get gradients."""
+        super().train(mode)
+        if self.texture_predictor is not None:
+            self.texture_predictor.eval()
+        return self
+
     # ---- template state ----
     def get_mean_shape(self) -> torch.Tensor:
         """Full (V, 3) mean shape, symmetrized if the template is."""

@@ -1,10 +1,12 @@
 """Shared building blocks (NCHW inside), mirroring the reference's
 net_blocks.py / networks.py as the JAX package's models/nn_blocks.py does.
 
-BatchNorm follows flax's constants: momentum 0.99 (torch momentum 0.01),
-eps 1e-5. Initialisation follows the JAX package's initialisers
-(`init_weights`): flax's lecun_normal kernels and zero biases by default,
-N(0, 0.02) in ConvBNLeaky / FCBNLeaky, and each head's own override.
+BatchNorm follows flax: momentum 0.99 (torch momentum 0.01), eps 1e-5,
+and in train mode the running variance is updated with the biased batch
+variance, the one it normalises with (BatchNorm1d/2d below).
+Initialisation follows the JAX package's initialisers (`init_weights`):
+flax's lecun_normal kernels and zero biases by default, N(0, 0.02) in
+ConvBNLeaky / FCBNLeaky, and each head's own override.
 """
 from __future__ import annotations
 
@@ -15,6 +17,40 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_MOMENTUM = 0.01  # flax BatchNorm momentum 0.99
+
+
+class _FlaxStats:
+    """Train-mode running statistics as flax's BatchNorm keeps them.
+
+    torch normalises with the biased batch variance but updates the running
+    variance with the unbiased one; flax uses the biased one for both. In
+    train mode one F.batch_norm pass normalises and, at momentum 1, leaves
+    the batch mean and unbiased variance in scratch buffers; the running
+    buffers then take running = 0.99 * running + 0.01 * batch with the
+    variance rescaled by (n - 1) / n. Eval mode is torch's own.
+    """
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
+        return y
+
+
+class BatchNorm1d(_FlaxStats, nn.BatchNorm1d):
+    def __init__(self, num_features: int):
+        super().__init__(num_features, momentum=BN_MOMENTUM)
+
+
+class BatchNorm2d(_FlaxStats, nn.BatchNorm2d):
+    def __init__(self, num_features: int):
+        super().__init__(num_features, momentum=BN_MOMENTUM)
 
 
 def lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
@@ -47,7 +83,7 @@ class ConvBNLeaky(nn.Module):
         super().__init__()
         pad = (kernel_size - 1) // 2
         self.conv = nn.Conv2d(cin, cout, kernel_size, stride, pad)
-        self.bn = nn.BatchNorm2d(cout, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(cout)
 
     def init_override(self, gen):
         nn.init.normal_(self.conv.weight, 0.0, 0.02, generator=gen)
@@ -62,7 +98,7 @@ class FCBNLeaky(nn.Module):
     def __init__(self, nin: int, nout: int):
         super().__init__()
         self.fc = nn.Linear(nin, nout)
-        self.bn = nn.BatchNorm1d(nout, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm1d(nout)
 
     def init_override(self, gen):
         nn.init.normal_(self.fc.weight, 0.0, 0.02, generator=gen)
@@ -91,9 +127,9 @@ class ResLayer2d(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.conv1 = conv3x3(cin, cout)
-        self.bn1 = nn.BatchNorm2d(cout, momentum=BN_MOMENTUM)
+        self.bn1 = BatchNorm2d(cout)
         self.conv2 = conv3x3(cout, cout)
-        self.bn2 = nn.BatchNorm2d(cout, momentum=BN_MOMENTUM)
+        self.bn2 = BatchNorm2d(cout)
         self.skip = cin == cout
 
     def forward(self, x):

@@ -2,8 +2,9 @@
 
 Each source under csrc/ has a plain C interface. It is compiled at first
 use into `_build/` next to the package (one nvcc per source, started
-together), keyed by a hash of the source and the flags, and loaded with
-ctypes. A failed build raises; nothing falls back.
+together), keyed by a hash of the source, the csrc/*.cuh headers it may
+include and the flags, and loaded with ctypes. A failed build raises;
+nothing falls back.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # sm_90a (Hopper). --fmad=false: the rasterizer's selects compare values
-# that one FMA contraction moves by an ULP (see csrc/raster_fwd.cu).
+# that one FMA contraction moves by an ULP (see csrc/raster_geometry.cuh).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
@@ -46,7 +47,10 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC_DIR / name
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}_{key.hexdigest()[:16]}.so"
 
 

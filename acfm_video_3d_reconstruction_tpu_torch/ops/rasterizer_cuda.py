@@ -1,8 +1,8 @@
-"""Binned rasterizer forward: the bin pass, the CUDA kernel's wrapper and
-its plain PyTorch version.
+"""Binned rasterizer: the bin pass, the forward and backward CUDA kernels'
+wrappers and their plain PyTorch versions.
 
-Counterpart of acfm_video_3d_reconstruction_tpu/ops/rasterizer_tpu.py
-(forward half). The bin geometry is part of the semantics, not a tuning
+Counterpart of acfm_video_3d_reconstruction_tpu/ops/rasterizer_tpu.py. The
+bin geometry is part of the semantics, not a tuning
 choice, because a bin keeps at most K faces and silently drops the rest:
   * bins are the TPU layout's row strips (16 x 128 px at 256^2, _pick_tiles);
   * K = round_up(min(K, F), 64), with K from auto_K;
@@ -13,7 +13,9 @@ So the port drops exactly the faces the TPU kernels drop.
 
 `rasterize_binned` runs the forward kernel csrc/raster_fwd.cu on a CUDA
 tensor and its plain PyTorch version (`forward_plain`) on a CPU tensor. It
-returns untiled (B, H, W) maps.
+returns untiled (B, H, W) maps. In soft mode it goes through `SoftRasterize`,
+whose backward is the kernel csrc/raster_bwd.cu on a CUDA tensor and
+`backward_plain` on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -30,9 +32,10 @@ SIGMA = 1e-4
 BLUR_RADIUS = math.log(1.0 / 1e-4 - 1.0) * SIGMA
 BIG = 1e10  # empty z-buffer value
 K_CHUNK = 64  # the bin capacity is rounded up to a multiple of this
+SLOT_CHUNK = 8  # slots per step of the plain versions' walk over a bin
 
-# Kernel launches on the card, by mode; the plain version never counts.
-LAUNCHES = {"soft": 0, "hard": 0}
+# Kernel launches on the card, by kernel; the plain versions never count.
+LAUNCHES = {"soft": 0, "hard": 0, "soft_bwd": 0}
 
 
 class BinnedFrags(NamedTuple):
@@ -117,9 +120,13 @@ def _face_tables(verts, faces, image_size, tile_h, tile_w, K, margin):
     idx (B, T, K) int32 face ids, -1 past the bin's count). The k-th
     overlapping face of a bin lands in slot k (inclusive cumsum - 1), so
     slots hold faces in ascending order and faces past K are dropped:
-    O(B*T*F) work, the same idx as the TPU binning's compare-reduce.
+    O(B*T*F) work, the same idx as the TPU binning's compare-reduce. Only
+    the gather of the face rows is differentiable: its backward scatters
+    the slots' rows to the faces, and an invalid slot (which gathers face
+    0) must carry a zero row.
     """
-    ov = _tile_overlap(verts, faces, image_size, tile_h, tile_w, margin)
+    with torch.no_grad():  # a boolean overlap: no graph to keep
+        ov = _tile_overlap(verts, faces, image_size, tile_h, tile_w, margin)
     B, T, F = ov.shape
     c = torch.cumsum(ov.to(torch.int32), dim=-1)
     pos = torch.where(ov & (c <= K), c - 1, K).long()  # slot K = dump
@@ -154,14 +161,27 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def _seg_d2(ux, uy, vx, vy, px, py):
+def _barycentric(ax, ay, bx, by, cx, cy, px, py):
+    """Unclipped barycentrics: the signed sub-areas over the face's area,
+    a near-zero area replaced by 1e-12 (csrc/raster_geometry.cuh)."""
+    w0 = _fma(bx - px, cy - py, -((by - py) * (cx - px)))
+    w1 = _fma(cx - px, ay - py, -((cy - py) * (ax - px)))
+    w2 = _fma(ax - px, by - py, -((ay - py) * (bx - px)))
+    area = _fma(bx - ax, cy - ay, -((by - ay) * (cx - ax)))
+    denom = torch.where(torch.abs(area) < 1e-12, torch.full_like(area, 1e-12), area)
+    return w0 / denom, w1 / denom, w2 / denom
+
+
+def _seg(ux, uy, vx, vy, px, py):
+    """(d^2, dx, dy, t) of the distance from p to segment u -> v, with
+    d = w - t*e, w = p - u, e = v - u and t clamped to [0, 1]."""
     ex, ey = vx - ux, vy - uy
     wx, wy = px - ux, py - uy
     ee = torch.clamp(_fma(ex, ex, ey * ey), min=1e-12)
     t = torch.clamp(_fma(wx, ex, wy * ey) / ee, 0.0, 1.0)
     dx = _fma(-t, ex, wx)
     dy = _fma(-t, ey, wy)
-    return _fma(dx, dx, dy * dy)
+    return _fma(dx, dx, dy * dy), dx, dy, t
 
 
 def _face_geometry(c, px, py, sigma, blur_radius, soft):
@@ -172,12 +192,7 @@ def _face_geometry(c, px, py, sigma, blur_radius, soft):
     b0, b1, in_radius).
     """
     ax, ay, bx, by, cx, cy, za, zb, zc = c.unbind(-1)
-    w0 = _fma(bx - px, cy - py, -((by - py) * (cx - px)))
-    w1 = _fma(cx - px, ay - py, -((cy - py) * (ax - px)))
-    w2 = _fma(ax - px, by - py, -((ay - py) * (bx - px)))
-    area = _fma(bx - ax, cy - ay, -((by - ay) * (cx - ax)))
-    denom = torch.where(torch.abs(area) < 1e-12, torch.full_like(area, 1e-12), area)
-    b0, b1, b2 = w0 / denom, w1 / denom, w2 / denom
+    b0, b1, b2 = _barycentric(ax, ay, bx, by, cx, cy, px, py)
     inside = (b0 >= 0.0) & (b1 >= 0.0) & (b2 >= 0.0)
 
     b0c, b1c, b2c = (torch.clamp(v, 0.0, 1.0) for v in (b0, b1, b2))
@@ -187,8 +202,8 @@ def _face_geometry(c, px, py, sigma, blur_radius, soft):
 
     if soft:
         d2 = torch.minimum(
-            torch.minimum(_seg_d2(ax, ay, bx, by, px, py), _seg_d2(bx, by, cx, cy, px, py)),
-            _seg_d2(cx, cy, ax, ay, px, py),
+            torch.minimum(_seg(ax, ay, bx, by, px, py)[0], _seg(bx, by, cx, cy, px, py)[0]),
+            _seg(cx, cy, ax, ay, px, py)[0],
         )
         signed = torch.where(inside, -d2, d2)
         in_radius = inside | (signed < blur_radius)
@@ -209,8 +224,16 @@ def _untile(x, image_size, tile_h, tile_w):
     return x.reshape(B, image_size, image_size, *rest)
 
 
+def _tile(x, image_size, tile_h, tile_w):
+    """(B, H, W) -> (B, T, th*tw): the inverse of _untile."""
+    B = x.shape[0]
+    n_by, n_bx = image_size // tile_h, image_size // tile_w
+    x = x.reshape(B, n_by, tile_h, n_bx, tile_w).transpose(2, 3)
+    return x.reshape(B, n_by * n_bx, tile_h * tile_w)
+
+
 def forward_plain(table, idx, image_size, tile_h, tile_w, sigma, blur_radius,
-                  soft, slot_chunk: int = 8) -> BinnedFrags:
+                  soft, slot_chunk: int = SLOT_CHUNK) -> BinnedFrags:
     """Plain PyTorch version of the kernel: the same binned function, walked
     over the slots `slot_chunk` at a time so it fits in memory at full width.
 
@@ -248,23 +271,81 @@ def forward_plain(table, idx, image_size, tile_h, tile_w, sigma, blur_radius,
     return BinnedFrags(*(_untile(v, image_size, tile_h, tile_w) for v in (S, p2f, b0, b1, zbuf)))
 
 
-# ------------------------------------------------------------- CUDA kernel --
+def _soft_grad_rows(c, px, py, A, sigma, blur_radius):
+    """The backward kernel's per-(pixel, slot) arithmetic (csrc/raster_bwd.cu),
+    summed over the pixels: c (B, T, 1, kc, 9) face rows, px/py (1, T, P, 1),
+    A (B, T, P, 1) -> (B, T, kc, 6) d(sum A*S)/d[ax ay bx by cx cy]."""
+    ax, ay, bx, by, cx, cy = c[..., :6].unbind(-1)
+    b0, b1, b2 = _barycentric(ax, ay, bx, by, cx, cy, px, py)
+    inside = (b0 >= 0.0) & (b1 >= 0.0) & (b2 >= 0.0)
+    d20, dx0, dy0, t0 = _seg(ax, ay, bx, by, px, py)
+    d21, dx1, dy1, t1 = _seg(bx, by, cx, cy, px, py)
+    d22, dx2, dy2, t2 = _seg(cx, cy, ax, ay, px, py)
+    inner = torch.minimum(d20, d21)
+    d2 = torch.minimum(inner, d22)
+    signed = torch.where(inside, -d2, d2)
+    in_radius = inside | (signed < blur_radius)
 
-def _library():
-    lib = load("raster_fwd.cu")
-    fn = lib.acfm_raster_fwd
+    # dS/d(d^2) = -+ sigmoid(-signed/sigma)/sigma inside / outside the face
+    g = 1.0 / (1.0 + torch.exp(signed / sigma)) / sigma * A
+    g = torch.where(in_radius, torch.where(inside, -g, g), torch.zeros_like(g))
+    # min-of-3 routing as jnp.minimum's VJP: ties split 50/50 per level
+    s_in = torch.where(inner < d22, 1.0, torch.where(inner == d22, 0.5, 0.0))
+    s0 = s_in * torch.where(d20 < d21, 1.0, torch.where(d20 == d21, 0.5, 0.0))
+    g0, g1, g2 = g * s0, g * (s_in - s0), g * (1.0 - s_in)
+    # envelope theorem: dd^2/du = 2d(t - 1), dd^2/dv = -2td;
+    # a = u(seg0), v(seg2); b = v(seg0), u(seg1); c = v(seg1), u(seg2)
+    terms = (
+        g0 * (dx0 * (t0 - 1.0)) - g2 * (t2 * dx2),
+        g0 * (dy0 * (t0 - 1.0)) - g2 * (t2 * dy2),
+        g1 * (dx1 * (t1 - 1.0)) - g0 * (t0 * dx0),
+        g1 * (dy1 * (t1 - 1.0)) - g0 * (t0 * dy0),
+        g2 * (dx2 * (t2 - 1.0)) - g1 * (t1 * dx1),
+        g2 * (dy2 * (t2 - 1.0)) - g1 * (t1 * dy1),
+    )
+    return torch.stack([2.0 * v.sum(2) for v in terms], dim=-1)
+
+
+@torch.no_grad()
+def backward_plain(table, idx, dS, image_size, tile_h, tile_w, sigma,
+                   blur_radius) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel: d(sum dS*S)/d(table).
+
+    dS (B, H, W) is dL/dS. Returns (B, T, K, 9) rows [gax gay gbx gby gcx gcy
+    0 0 0], hand-derived as rasterizer_tpu._soft_logterm_grad does (not by
+    autograd), walked over the slots SLOT_CHUNK at a time like
+    forward_plain. The z columns and every slot past the bin's count are
+    exactly 0. Sums run over the pixels in another order than the kernel's.
+    """
+    B, T, K, _ = table.shape
+    px, py = _bin_pixels(T, image_size, tile_h, tile_w, table.device)
+    px, py = px[None, :, :, None], py[None, :, :, None]  # (1, T, P, 1)
+    A = _tile(dS.float(), image_size, tile_h, tile_w)[..., None]  # (B, T, P, 1)
+    valid_all = idx >= 0
+    grad = table.new_zeros(B, T, K, 9)
+    n_valid = int(valid_all.sum(-1).max())
+    for k0 in range(0, n_valid, SLOT_CHUNK):
+        c = table[:, :, None, k0:k0 + SLOT_CHUNK, :]  # (B, T, 1, kc, 9)
+        rows = _soft_grad_rows(c, px, py, A, sigma, blur_radius)
+        valid = valid_all[:, :, k0:k0 + SLOT_CHUNK, None]
+        grad[:, :, k0:k0 + SLOT_CHUNK, :6] = torch.where(valid, rows, torch.zeros_like(rows))
+    return grad
+
+
+# ------------------------------------------------------------ CUDA kernels --
+
+def _function(source, name, argtypes):
+    """The C entry `name` of csrc/<source>, built at first use."""
+    fn = getattr(load(source), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = argtypes
     return fn
 
 
-def forward_cuda(table, idx, image_size, tile_h, tile_w, sigma, blur_radius,
-                 soft) -> BinnedFrags:
-    """Launch csrc/raster_fwd.cu on the bin tables (CUDA tensors)."""
+def _check_bins(table, idx, image_size, tile_h, tile_w, what):
     if not (table.is_cuda and idx.is_cuda):
-        raise ValueError("forward_cuda takes CUDA tensors")
+        raise ValueError(f"{what} takes CUDA tensors")
     if table.dtype != torch.float32 or idx.dtype != torch.int32:
         raise ValueError(f"table f32 / idx int32 expected, got {table.dtype}/{idx.dtype}")
     B, T, K, row = table.shape
@@ -273,7 +354,15 @@ def forward_cuda(table, idx, image_size, tile_h, tile_w, sigma, blur_radius,
     if image_size % tile_h or image_size % tile_w or \
             T != (image_size // tile_h) * (image_size // tile_w):
         raise ValueError(f"bins {tile_h}x{tile_w} x {T} do not tile {image_size}^2")
-    fn = _library()
+
+
+def forward_cuda(table, idx, image_size, tile_h, tile_w, sigma, blur_radius,
+                 soft) -> BinnedFrags:
+    """Launch csrc/raster_fwd.cu on the bin tables (CUDA tensors)."""
+    _check_bins(table, idx, image_size, tile_h, tile_w, "forward_cuda")
+    B, T, K, _ = table.shape
+    fn = _function("raster_fwd.cu", "acfm_raster_fwd", [ctypes.c_void_p] * 8 + [
+        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     table = table.contiguous()
     idx = idx.contiguous()
     counts = (idx >= 0).sum(-1, dtype=torch.int32).contiguous()
@@ -296,6 +385,59 @@ def forward_cuda(table, idx, image_size, tile_h, tile_w, sigma, blur_radius,
     return out
 
 
+def backward_cuda(table, idx, dS, image_size, tile_h, tile_w, sigma,
+                  blur_radius) -> torch.Tensor:
+    """Launch csrc/raster_bwd.cu: backward_plain's function on CUDA tensors."""
+    _check_bins(table, idx, image_size, tile_h, tile_w, "backward_cuda")
+    B, T, K, _ = table.shape
+    if not dS.is_cuda or tuple(dS.shape) != (B, image_size, image_size):
+        raise ValueError(f"dS must be a CUDA (B, H, W) map, got {tuple(dS.shape)}")
+    if tile_h * tile_w > 16 * 128:
+        raise ValueError(f"bins of {tile_h}x{tile_w} exceed the kernel's 2048 pixels")
+    fn = _function("raster_bwd.cu", "acfm_raster_bwd", [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    table = table.contiguous()
+    dS = dS.float().contiguous()
+    counts = (idx >= 0).sum(-1, dtype=torch.int32).contiguous()
+    grad = torch.empty_like(table)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = fn(table.data_ptr(), counts.data_ptr(), dS.data_ptr(), grad.data_ptr(), B, T, K,
+                 image_size, tile_h, tile_w, sigma, blur_radius, stream)
+    if err:
+        raise RuntimeError(f"raster_bwd kernel launch failed: CUDA error {err}")
+    LAUNCHES["soft_bwd"] += 1
+    return grad
+
+
+class SoftRasterize(torch.autograd.Function):
+    """Soft binned rasterization with `table` as its only differentiable
+    input: apply(table, idx, image_size, tile_h, tile_w, sigma, blur_radius)
+    -> the five BinnedFrags maps, of which only S carries a gradient.
+
+    Forward and backward launch the kernels on CUDA tensors and run the
+    plain versions on CPU tensors. The backward takes dL/dS (autograd has
+    already applied mask = 1 - exp(S)) and returns d(table); autograd's
+    backward of the gather in _face_tables scatters the rows to the faces
+    and vertices.
+    """
+
+    @staticmethod
+    def forward(ctx, table, idx, image_size, tile_h, tile_w, sigma, blur_radius):
+        fwd = forward_cuda if table.is_cuda else forward_plain
+        out = fwd(table, idx, image_size, tile_h, tile_w, sigma, blur_radius, True)
+        ctx.save_for_backward(table, idx)
+        ctx.raster = (image_size, tile_h, tile_w, sigma, blur_radius)
+        ctx.mark_non_differentiable(*out[1:])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, dS, *_):
+        table, idx = ctx.saved_tensors
+        bwd = backward_cuda if dS.is_cuda else backward_plain
+        return (bwd(table, idx, dS, *ctx.raster),) + (None,) * 6
+
+
 # ------------------------------------------------------------------ entry --
 
 def bin_faces(verts, faces, image_size: int, K: int, blur_radius: float):
@@ -313,18 +455,15 @@ def rasterize_binned(verts: torch.Tensor, faces: torch.Tensor, image_size: int,
                      soft: bool = True) -> BinnedFrags:
     """Bin, then rasterize. verts (B, V, 3) projected, faces (F, 3).
 
-    Launches the CUDA kernel for a CUDA tensor and runs the plain version
-    for a CPU tensor. Hard mode takes no vertex gradient (it detaches). The
-    kernel has no backward yet: soft mode on the card with a vertex gradient
-    raises rather than detach silently.
+    Launches the CUDA kernels for a CUDA tensor and runs the plain versions
+    for a CPU tensor. Soft mode gives S a gradient to the vertices
+    (SoftRasterize); hard mode takes none (it detaches).
     """
     if not soft:
         verts = verts.detach()
-    if verts.is_cuda and soft and verts.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the soft rasterizer's CUDA backward is not ported yet (training "
-            "slice); run under torch.no_grad()/inference_mode or on the CPU"
-        )
     table, idx, th, tw = bin_faces(verts, faces, image_size, K, blur_radius)
+    if soft:
+        return BinnedFrags(*SoftRasterize.apply(table, idx, image_size, th, tw, sigma,
+                                                blur_radius))
     fwd = forward_cuda if verts.is_cuda else forward_plain
-    return fwd(table, idx, image_size, th, tw, sigma, blur_radius, soft)
+    return fwd(table, idx, image_size, th, tw, sigma, blur_radius, False)

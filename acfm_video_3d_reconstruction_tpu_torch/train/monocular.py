@@ -1,17 +1,16 @@
-"""Monocular model: build, forward and the eval step.
+"""Monocular model: build, forward, the train step and the eval step.
 
-Counterpart of acfm_video_3d_reconstruction_tpu/train/monocular.py
-(inference half): encoder -> handle offsets + camera -> screened-Poisson
-solve -> one soft rasterization for mask, visibility and texture, one hard
-rasterization of the mirrored view for its texture -> the loss stack.
+Counterpart of acfm_video_3d_reconstruction_tpu/train/monocular.py:
+encoder -> handle offsets + camera -> screened-Poisson solve -> one soft
+rasterization for mask, visibility and texture, one hard rasterization of
+the mirrored view for its texture -> the loss stack (-> backward -> Adam).
 The conv nets run under bf16 autocast when cfg.model.dtype is "bfloat16";
 the geometry (solve, projection, rasterization) stays float32.
 
 The model's parameters and BatchNorm statistics live in the modules
-(`MonoModules.model`, `.lpips`), so the eval step takes only a batch; its
-aux dict has the JAX eval step's keys, "batch_stats" being the model's
-BatchNorm buffers by name.
-The training step (backward kernel, Adam) is not ported yet.
+(`MonoModules.model`, `.lpips`), so the steps take only a batch; the aux
+dict has the JAX forward's keys, "batch_stats" being the model's BatchNorm
+buffers by name.
 """
 from __future__ import annotations
 
@@ -101,9 +100,16 @@ def to_device_batch(mods: MonoModules, batch: dict) -> dict:
             for k in BATCH_KEYS}
 
 
-def forward(mods: MonoModules, batch: dict):
-    """Full monocular forward in eval mode; returns (total_loss, aux)."""
+def forward(mods: MonoModules, batch: dict, train: bool = False):
+    """Full monocular forward; returns (total_loss, aux).
+
+    train=True puts the model in train mode (MeshNet.train: the encoder's
+    BatchNorms normalise with batch statistics and update their running
+    buffers in place, the texture decoder keeps its stored ones), as the
+    JAX forward(train=True) does; train=False is eval mode throughout.
+    """
     cfg, t, model = mods.cfg, mods.template, mods.model
+    model.train(train)
     w = cfg.mono_weights
     img_size = cfg.model.img_size
     faces = mods.faces
@@ -184,7 +190,7 @@ def forward(mods: MonoModules, batch: dict):
 
     aux = {
         "metrics": metrics,
-        # eval mode leaves the BatchNorm statistics as they are
+        # updated in place in train mode, as they were in eval mode
         "batch_stats": {k: v for k, v in model.named_buffers()
                         if k.endswith(("running_mean", "running_var"))},
         "mask_pred": mask_pred,
@@ -193,6 +199,31 @@ def forward(mods: MonoModules, batch: dict):
         "cam_pred": cam_pred,
     }
     return total, aux
+
+
+def make_train_step(mods: MonoModules):
+    """train_step(batch) -> metrics, the JAX make_train_step's step.
+
+    One forward in train mode, backward, and one torch.optim.Adam step over
+    every MeshNet parameter (mean_v, lbs_logits and vert2kp_logits too, as
+    JAX differentiates all of `params`) with cfg.train.learning_rate, betas
+    (cfg.train.beta1, 0.999) and eps 1e-8: optax.adam with eps_root 0. LPIPS
+    is frozen. Where JAX returns a new TrainState, this updates the modules'
+    parameters, BatchNorm statistics and the optimizer state in place. The
+    metrics are those of the forward before the update, detached.
+    """
+    tc = mods.cfg.train
+    opt = torch.optim.Adam(mods.model.parameters(), lr=tc.learning_rate,
+                           betas=(tc.beta1, 0.999), eps=1e-8)
+
+    def train_step(batch: dict) -> dict:
+        opt.zero_grad(set_to_none=True)
+        loss, aux = forward(mods, to_device_batch(mods, batch), train=True)
+        loss.backward()
+        opt.step()
+        return {k: v.detach() for k, v in aux["metrics"].items()}
+
+    return train_step
 
 
 def make_eval_step(mods: MonoModules):

@@ -1,11 +1,11 @@
-"""The binned rasterizer's CUDA kernel against its plain PyTorch version.
+"""The binned rasterizer's CUDA kernels against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package, so it runs on a GPU
 machine without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_kernels.py
 
-Tests marked `cuda` skip without a card (the kernel has no CPU mode).
+Tests marked `cuda` skip without a card (the kernels have no CPU mode).
 """
 import numpy as np
 import pytest
@@ -103,8 +103,39 @@ class TestKernelWrapper:
         torch.testing.assert_close(kern.zbuf[hit], plain.zbuf[hit], atol=1e-5, rtol=0)
 
     @pytest.mark.cuda
-    def test_soft_kernel_refuses_vertex_gradient(self, cuda_device):
-        proj, faces, size = _bench_scene(B=1)
+    @pytest.mark.parametrize("size,subdivide", [(256, 3), (64, 3), (96, 2), (32, 2), (8, 1)])
+    def test_backward_kernel_matches_plain(self, cuda_device, size, subdivide):
+        """The backward kernel against backward_plain on the card, at the
+        forward test's sizes, for a seeded dL/dS: the same per-pair f32
+        arithmetic summed over the pixels in another order, so the rows'
+        vector relative error is summation rounding (<= 1e-4); the z
+        columns and the slots past each bin's count are exactly 0."""
+        proj, faces, size = _bench_scene(B=4, size=size, subdivide=subdivide)
+        proj, faces = proj.to(cuda_device), faces.to(cuda_device)
+        K = rc.auto_K(faces.shape[0], size, 192)
+        dS = torch.from_numpy(np.random.default_rng(1).normal(
+            size=(4, size, size)).astype(np.float32)).to(cuda_device)
+        for sigma, blur in ((rc.SIGMA, rc.BLUR_RADIUS), (5e-3, 6e-2)):
+            table, idx, th, tw = rc.bin_faces(proj, faces, size, K, blur)
+            kern = rc.backward_cuda(table, idx, dS, size, th, tw, sigma, blur)
+            plain = rc.backward_plain(table, idx, dS, size, th, tw, sigma, blur)
+            torch.cuda.synchronize()
+            rel = (torch.linalg.vector_norm(kern - plain) / torch.linalg.vector_norm(plain))
+            assert rel.item() <= 1e-4, (sigma, rel.item())
+            assert torch.count_nonzero(kern[..., 6:]) == 0
+            assert torch.count_nonzero(kern[idx < 0]) == 0
+
+    @pytest.mark.cuda
+    def test_backward_counts_one_launch(self, cuda_device):
+        """A vertex gradient through the soft rasterizer on the card runs
+        one forward and one backward kernel, and gives finite gradients."""
+        proj, faces, size = _bench_scene(B=2)
         proj = proj.to(cuda_device).requires_grad_(True)
-        with pytest.raises(NotImplementedError):
-            rc.rasterize_binned(proj, faces.to(cuda_device), size, 192, soft=True)
+        before = dict(rc.LAUNCHES)
+        fr = rc.rasterize_binned(proj, faces.to(cuda_device), size, 192, soft=True)
+        (1.0 - torch.exp(fr.S)).sum().backward()
+        torch.cuda.synchronize()
+        assert rc.LAUNCHES["soft"] == before["soft"] + 1
+        assert rc.LAUNCHES["soft_bwd"] == before["soft_bwd"] + 1
+        assert bool(torch.isfinite(proj.grad).all())
+        assert proj.grad[..., :2].abs().sum() > 0

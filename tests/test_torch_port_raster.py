@@ -5,8 +5,11 @@ cameras). The port's binning must give the TPU binning's idx tables
 exactly; its plain soft/hard forward must meet that file's tolerances
 against the Pallas kernel in interpret mode (mask atol 2e-4, pix_to_face
 agreeing on > 99.9% of pixels, barycentrics atol 1e-4) and against the
-dense pure-JAX reference. The CUDA kernel's own tests are in
-tests/test_torch_port_kernels.py.
+dense pure-JAX reference. Its plain backward (backward_plain, through
+the autograd Function) must meet that file's gradient bound against the
+Pallas backward in interpret mode (rel < 1e-5 at sigma 5e-3) and agree
+with autograd through the plain forward. The CUDA kernels' own tests are
+in tests/test_torch_port_kernels.py.
 """
 import subprocess
 import sys
@@ -155,6 +158,80 @@ class TestPlainForward:
             np.testing.assert_allclose(many.S.numpy(), one.S.numpy(), rtol=1e-5, atol=1e-5)
 
 
+def _icosahedron_scene():
+    """tests/test_rasterizer_tpu.py::test_grad_exact_single_tile's scene:
+    one 8x8 bin, 20 faces."""
+    v, f = icosphere.icosahedron()
+    proj = camera.orthographic_proj_withz(
+        jnp.asarray(v, jnp.float32)[None] * 0.7,
+        jnp.asarray([[0.9, 0.05, -0.05, 1.0, 0, 0, 0]]), offset_z=5.0)
+    return np.asarray(proj), np.asarray(f, np.int32)
+
+
+class TestPlainBackward:
+    """backward_plain, the plain version of the backward kernel, reached
+    through SoftRasterize's autograd on CPU tensors."""
+
+    @pytest.mark.heavy
+    @pytest.mark.parametrize("which", ["two_view_32px", "single_tile_8px"])
+    def test_vertex_grad_matches_pallas_interpret(self, scene, which):
+        """The port's per-vertex gradient of sum(w * mask) against jax.grad
+        of rasterizer_tpu.soft_silhouette_tpu (its backward kernel in
+        interpret mode) at sigma 5e-3 / blur 6e-2, the well-conditioned
+        setting of tests/test_rasterizer_tpu.py::TestBackwardParity. That
+        file bounds two rasterizers' gradients at rel < 0.05; these two run
+        the same hand-derived VJP with the forward's FMAs and divides, so
+        they differ in summation order only (measured 1.1e-7 two-view and
+        7.3e-8 single-tile) and are held at rel < 1e-5, which a dropped tie
+        split or a mis-weighted endpoint would break."""
+        proj, faces = scene if which == "two_view_32px" else _icosahedron_scene()
+        size, K = (IMG, 320) if which == "two_view_32px" else (8, 20)
+        sigma, blur = 5e-3, 6e-2
+        w = np.random.default_rng(0).random((proj.shape[0], size, size)).astype(np.float32)
+        g_j = np.asarray(jax.grad(lambda p: (jtpu.soft_silhouette_tpu(
+            p, jnp.asarray(faces), size, K, sigma, blur, interpret=True)[0] * w).sum())(
+            jnp.asarray(proj)))
+        p_t = _t(proj).requires_grad_(True)
+        mask, _ = ras.soft_silhouette(p_t, _t(faces), size, sigma=sigma, blur_radius=blur)
+        (mask * _t(w)).sum().backward()
+        rel = np.linalg.norm(p_t.grad.numpy() - g_j) / np.linalg.norm(g_j)
+        print(f"{which}: vertex gradient rel error vs the Pallas backward {rel:.3g}")
+        assert rel < 1e-5, rel
+
+    @pytest.mark.parametrize("sigma,blur", [(5e-3, 6e-2), (rc.SIGMA, rc.BLUR_RADIUS)],
+                             ids=["sigma5e-3", "sigma1e-4"])
+    def test_matches_autograd_through_forward_plain(self, scene, sigma, blur):
+        """The hand-derived rows against torch autograd through forward_plain:
+        the same f32 function, differentiated two ways (the envelope
+        theorem drops t's quotient, whose term is 2d.e ~ rounding), also at
+        the production sigma. Vector rel 1e-5 (measured ~2e-7)."""
+        proj, faces = scene
+        table, idx, th, tw = rc.bin_faces(_t(proj), _t(faces), IMG, 320, blur)
+        dS = torch.tensor(np.random.default_rng(1).normal(size=(2, IMG, IMG)),
+                          dtype=torch.float32)
+        got = rc.backward_plain(table, idx, dS, IMG, th, tw, sigma, blur)
+        tab = table.clone().requires_grad_(True)
+        fr = rc.forward_plain(tab, idx, IMG, th, tw, sigma, blur, True)
+        (fr.S * dS).sum().backward()
+        rel = (torch.linalg.vector_norm(got - tab.grad) / torch.linalg.vector_norm(tab.grad))
+        assert rel.item() < 1e-5, rel.item()
+
+    @pytest.mark.parametrize("K", [320, 192])
+    def test_z_columns_and_invalid_slots_are_exact_zeros(self, scene, K):
+        """z never enters S, and a slot past the bin's count (which gathers
+        face 0) must add nothing to face 0: both exactly 0, also where some
+        bins overflow and others are part full (K=192)."""
+        proj, faces = scene
+        table, idx, th, tw = rc.bin_faces(_t(proj), _t(faces), IMG, K, rc.BLUR_RADIUS)
+        dS = torch.tensor(np.random.default_rng(2).normal(size=(2, IMG, IMG)),
+                          dtype=torch.float32)
+        g = rc.backward_plain(table, idx, dS, IMG, th, tw, rc.SIGMA, rc.BLUR_RADIUS)
+        assert (idx < 0).any() and (idx >= 0).any()
+        assert torch.count_nonzero(g[..., 6:]) == 0
+        assert torch.count_nonzero(g[idx < 0]) == 0
+        assert torch.count_nonzero(g[idx >= 0][:, :6]) > 0
+
+
 @pytest.mark.parametrize(
     "form", ["x*y-z*w", "a*b+c*d+e*f", "w-t*e", "x*x+y*y"],
 )
@@ -236,12 +313,14 @@ class TestPublicFunctions:
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without JAX or the JAX package."""
+    """Every module of the port, and chip_smoke.py, imports without JAX or
+    the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import acfm_video_3d_reconstruction_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "       or k == 'flax' or k.startswith('flax.')\n"
         "       or k.split('.')[0] == 'acfm_video_3d_reconstruction_tpu']\n"
