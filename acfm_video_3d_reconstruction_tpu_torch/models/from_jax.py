@@ -110,3 +110,31 @@ def load_jax_weights(mods, params: Mapping, batch_stats: Mapping,
     mods.model.load_state_dict(convert(mods.model, params, batch_stats))
     if mods.lpips is not None:
         mods.lpips.load_state_dict(convert(mods.lpips, lpips_params))
+
+
+def maskflownet_from_jax(params: Mapping) -> dict:
+    """The JAX package's MaskFlownet tree {"s": {name: {"w", "b"}}, "m": ...}
+    (numpy arrays) -> a full state_dict of flow.maskflownet.MaskFlownet,
+    stage 1 under 'MaskFlownet_S.'. Conv kernels HWIO -> OIHW; the upfeat
+    deconv kernels (kh, kw, Cout, Cin) -> ConvTranspose2d (Cin, Cout, kh,
+    kw), the same transpose (the inverse of flow/maskflownet.py:300-304).
+    Checked against the module: same keys, same shapes."""
+    from ..flow.maskflownet import MaskFlownet
+
+    with torch.device("meta"):
+        target = MaskFlownet().state_dict()
+    out = {}
+    for stage, prefix in (("s", "MaskFlownet_S."), ("m", "")):
+        for name, p in params[stage].items():
+            for leaf, arr in (("weight", np.asarray(p["w"]).transpose(3, 2, 0, 1)),
+                              ("bias", np.asarray(p["b"]))):
+                key = f"{prefix}{name}.{leaf}"
+                if key not in target:
+                    raise KeyError(f"{stage}/{name} -> {key}: not in MaskFlownet")
+                if tuple(arr.shape) != tuple(target[key].shape):
+                    raise ValueError(f"{key}: shape {arr.shape} vs {tuple(target[key].shape)}")
+                out[key] = torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32)
+    missing = sorted(set(target) - set(out))
+    if missing:
+        raise KeyError(f"not covered by the JAX tree: {missing}")
+    return out

@@ -23,6 +23,25 @@ Phases, each of which raises (exit code 1) on failure:
      them. The outputs must be finite, training must lower total_loss, and
      each path must agree with the same step through the plain rasterizer
      (the train step's gradients with the nets in f32).
+  5. flow, the frozen two-stage MaskFlownet in f32 at full width, seeded
+     random weights (flow/maskflownet.py::init_params):
+     a. the cost-volume kernel against correlation_plain at the 10 distinct
+        shapes of one pass at 384x768 with 12 pairs (max abs error <= 1e-5),
+        timed with its plain version and its bound;
+     b. the net at 64x128, B=2, on the card against the CPU, every level's
+        flow within vector relative error 1e-3;
+     c. the main flow path, flow/infer.py::make_flow_fn(net, 256, (384, 768))
+        on a (12, 2, 256, 256, 3) clip batch, timed over FLOW_WINDOWS windows
+        of FLOW_CALLS calls (median pairs/s and spread): exactly 15
+        cost-volume launches per call (5 at md=4, 10 at md=2) and none of
+        the rasterizer, finite flows, and agreement with the same call
+        through correlation_plain (relative error <= 1e-4, beside the
+        kernel path's own run-to-run floor), and the convolutions'
+        operations per call with their rate over the windows;
+     d. the flow CLI's path, predict_flow_native on one 436x1024 pair
+        (stretched to 448x1024): finite, 15 launches.
+The launch counters of every kernel are zeroed just before each main path
+and read just after it.
 The second-to-last lines are the card's name and power limit, then one
 JSON line of kernel records; the last line is {"ok": true, "device": ...}.
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -59,6 +78,11 @@ B, IMG = 16, 256
 # the main paths are timed over windows of steps
 EVAL_STEPS, EVAL_WINDOWS = 100, 3
 TRAIN_STEPS, TRAIN_WINDOWS = 20, 3
+# the flow path: batch_size 12 clips of num_frames 2 at img_size 256 (the
+# multiframe defaults), the net at its reference input size
+FLOW_B, FLOW_NET_HW = 12, (384, 768)
+FLOW_CALLS, FLOW_WINDOWS = 3, 3
+NATIVE_HW = (436, 1024)  # a Sintel frame
 
 
 def log(msg: str) -> None:
@@ -161,35 +185,46 @@ def phase_kernels(torch, device):
         # table f32, idx int32, counts (B, T) int32 in; five (B, H, W) maps out
         nbytes = (table.numel() + idx.numel() + idx[..., 0].numel() + 5 * B * IMG * IMG) * 4
         records.append(_record(
-            f"raster_fwd_{mode}", mode, "raster_fwd.cu", 259,
-            lambda: rc.forward_cuda(table, idx, IMG, th, tw, rc.SIGMA, blur, soft),
+            f"raster_fwd_{mode}", "raster_fwd.cu", RASTER_TPU + ":259",
+            time_cuda(lambda: rc.forward_cuda(table, idx, IMG, th, tw, rc.SIGMA, blur, soft), 20),
             lambda: rc.forward_plain(table, idx, IMG, th, tw, rc.SIGMA, blur, soft),
-            idx, th * tw, F, nbytes, max(err_b, err_z, err_m)))
+            _raster_ops(mode, idx, th * tw, F), nbytes, max(err_b, err_z, err_m), mode))
     records.append(_backward_record(torch, rc, proj, faces, K))
     return records
 
 
-def _record(name, mode, source, replaces_line, kernel, plain, idx, bin_pixels, n_faces,
-            nbytes, max_abs_err):
-    """Time `kernel` and its `plain` version and give the kernel's record.
+RASTER_TPU = "acfm_video_3d_reconstruction_tpu/ops/rasterizer_tpu.py"
+CORRELATION_TPU = "acfm_video_3d_reconstruction_tpu/flow/correlation_pallas.py"
 
-    The bound is the larger of the operations the function needs (OPS_PER_PAIR
-    for each (pixel, valid slot) pair of idx's bins, OPS_PER_FACE once per
-    (view, face)) over PEAK_FP32_FLOPS and `nbytes` over PEAK_BYTES_PER_S.
-    main() fills in the launches."""
-    ms = time_cuda(kernel, 20)
-    plain_ms = time_cuda(plain, 3, 1)
+
+def _raster_ops(mode, idx, bin_pixels, n_faces):
+    """fp32 operations a rasterizer kernel's function needs: OPS_PER_PAIR for
+    each (pixel, valid slot) pair of idx's bins, OPS_PER_FACE once per
+    (view, face)."""
     pairs = int((idx >= 0).sum()) * bin_pixels
-    ops_s = (pairs * OPS_PER_PAIR[mode] + B * n_faces * OPS_PER_FACE[mode]) / PEAK_FP32_FLOPS
-    bytes_s = nbytes / PEAK_BYTES_PER_S
-    bound_ms = max(ops_s, bytes_s) * 1e3
-    bound_by = "operations" if ops_s >= bytes_s else "bytes"
-    log(f"[kernels] {mode}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; {pairs} (pixel, "
-        f"slot) pairs, bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"[kernels] {mode}: {pairs} (pixel, slot) pairs")
+    return pairs * OPS_PER_PAIR[mode] + B * n_faces * OPS_PER_FACE[mode]
+
+
+def _bound(ops, nbytes):
+    """(bound ms, what bounds it): the larger of `ops` fp32 operations over
+    PEAK_FP32_FLOPS and `nbytes` over PEAK_BYTES_PER_S."""
+    ops_s, bytes_s = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def _record(name, source, replaces, ms, plain, ops, nbytes, max_abs_err, what):
+    """The record of a kernel that took `ms` per launch: times its `plain`
+    version and gives its bound from `ops` and `nbytes`. main() fills in
+    the launches."""
+    plain_ms = time_cuda(plain, 3, 1)
+    bound_ms, bound_by = _bound(ops, nbytes)
+    log(f"[kernels] {what}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
     return {
         "name": name, "route": "cuda",
         "source": f"acfm_video_3d_reconstruction_tpu_torch/csrc/{source}",
-        "replaces": f"acfm_video_3d_reconstruction_tpu/ops/rasterizer_tpu.py:{replaces_line}",
+        "replaces": replaces,
         "launches": None, "max_abs_err": max_abs_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
@@ -223,10 +258,11 @@ def _backward_record(torch, rc, proj, faces, K):
     # table and rows (B, T, K, 9) f32, counts (B, T) int32, dL/dS (B, H, W) f32
     nbytes = 2 * table.numel() * 4 + idx[..., 0].numel() * 4 + dS.numel() * 4
     return _record(
-        "raster_bwd_soft", "soft_bwd", "raster_bwd.cu", 449,
-        lambda: rc.backward_cuda(table, idx, dS, IMG, th, tw, rc.SIGMA, rc.BLUR_RADIUS),
+        "raster_bwd_soft", "raster_bwd.cu", RASTER_TPU + ":449",
+        time_cuda(lambda: rc.backward_cuda(table, idx, dS, IMG, th, tw, rc.SIGMA,
+                                           rc.BLUR_RADIUS), 20),
         lambda: rc.backward_plain(table, idx, dS, IMG, th, tw, rc.SIGMA, rc.BLUR_RADIUS),
-        idx, th * tw, faces.shape[0], nbytes, err)
+        _raster_ops("soft_bwd", idx, th * tw, faces.shape[0]), nbytes, err, "soft_bwd")
 
 
 def _bench_batch(num_kps=15):
@@ -404,31 +440,53 @@ def plain_rasterizer():
         rc.forward_cuda, rc.backward_cuda = kernels
 
 
-def _timed(torch, fn, windows, steps, what):
-    """Zero the launch counters, call fn in `windows` windows of `steps`
-    calls (each window ends in a synchronize); return the last result, the
-    median frames/s, its spread (max - min) / median and the launches."""
+def _counters():
+    """Every kernel's launch counter dict."""
+    from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
     from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
 
-    for k in rc.LAUNCHES:
-        rc.LAUNCHES[k] = 0
-    window_fps = []
+    return rc.LAUNCHES, cc.LAUNCHES
+
+
+def zero_launches() -> None:
+    for counts in _counters():
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches() -> dict:
+    """All kernels' launches since zero_launches()."""
+    return {k: v for counts in _counters() for k, v in counts.items()}
+
+
+def only(**expected) -> dict:
+    """The launch counts `expected`, every other kernel at 0."""
+    return {k: expected.get(k, 0) for k in read_launches()}
+
+
+def _timed(torch, fn, windows, steps, what, batch=B, shape=f"{IMG}^2", unit="frames"):
+    """Zero the launch counters, call fn in `windows` windows of `steps`
+    calls (each window ends in a synchronize); return the last result, the
+    median `unit`/s (`batch` per call), its spread (max - min) / median and
+    the launches."""
+    zero_launches()
+    window_rate = []
     for _ in range(windows):
         t0 = time.perf_counter()
         for _ in range(steps):
             out = fn()
         torch.cuda.synchronize()
-        window_fps.append(B * steps / (time.perf_counter() - t0))
-    launches = dict(rc.LAUNCHES)
-    fps = float(np.median(window_fps))
-    spread = (max(window_fps) - min(window_fps)) / fps
-    log(f"[main] {windows} windows of {steps} {what} steps at B={B} {IMG}^2: frames/s "
-        f"{[round(f, 2) for f in window_fps]}, median {fps:.2f} ({B * 1e3 / fps:.3f} "
-        f"ms/step), spread (max-min)/median {spread:.4f}; launches {launches}")
-    return out, fps, spread, launches
+        window_rate.append(batch * steps / (time.perf_counter() - t0))
+    launches = read_launches()
+    rate = float(np.median(window_rate))
+    spread = (max(window_rate) - min(window_rate)) / rate
+    log(f"[main] {windows} windows of {steps} {what} calls at B={batch} {shape}: {unit}/s "
+        f"{[round(f, 2) for f in window_rate]}, median {rate:.2f} ({batch * 1e3 / rate:.3f} "
+        f"ms/call), spread (max-min)/median {spread:.4f}; launches {launches}")
+    return out, rate, spread, launches
 
 
-def _profile(torch, fn, path, what):
+def _profile(torch, fn, path, what, shape=f"B={B} {IMG}^2"):
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -436,7 +494,7 @@ def _profile(torch, fn, path, what):
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     with open(path, "a") as fh:
-        fh.write(f"==== one {what} step, B={B} {IMG}^2 ====\n{table}\n")
+        fh.write(f"==== one {what} step, {shape} ====\n{table}\n")
     log(f"[main] profile of one {what} step written to {path}")
 
 
@@ -449,7 +507,7 @@ def phase_eval(torch, mods, batch, profile):
     aux, fps, spread, launches = _timed(torch, lambda: step(batch), EVAL_WINDOWS, EVAL_STEPS,
                                         "eval")
     n_steps = EVAL_WINDOWS * EVAL_STEPS
-    require(launches == {"soft": n_steps, "hard": n_steps, "soft_bwd": 0},
+    require(launches == only(soft=n_steps, hard=n_steps),
             f"eval launches {launches} != one soft and one hard per step ({n_steps} steps)")
     _check_aux(torch, aux, IMG, B, "main")
 
@@ -490,7 +548,7 @@ def phase_train(torch, mods, batch, profile):
     metrics, fps, spread, launches = _timed(torch, lambda: step(batch), TRAIN_WINDOWS,
                                             TRAIN_STEPS, "train")
     n_steps = TRAIN_WINDOWS * TRAIN_STEPS
-    require(launches == {"soft": n_steps, "hard": n_steps, "soft_bwd": n_steps},
+    require(launches == only(soft=n_steps, hard=n_steps, soft_bwd=n_steps),
             f"train launches {launches} != one soft, hard and soft_bwd per step ({n_steps} steps)")
     for k, v in metrics.items():
         require(bool(torch.isfinite(v).all()), f"train: metric {k} not finite")
@@ -526,10 +584,184 @@ def phase_train(torch, mods, batch, profile):
     return fps, spread, launches
 
 
+def _flow_shapes():
+    """The cost volume's distinct (md, C, H, W) at FLOW_NET_HW, finest last
+    per md, with its launches per two-stage pass: stage 1 one per level at
+    md=4, stage 2 two per level (corru, corrv) at md=2."""
+    from acfm_video_3d_reconstruction_tpu_torch.flow.maskflownet import PYR_CH
+
+    nh, nw = FLOW_NET_HW
+    return [(md, PYR_CH[lvl - 1], nh >> lvl, nw >> lvl, per_pass)
+            for md, per_pass in ((4, 1), (2, 2)) for lvl in (6, 5, 4, 3, 2)]
+
+
+def phase_flow_kernels(torch, device):
+    """The cost-volume kernel against correlation_plain (run on the card) at
+    every shape of the full-width pass, on seeded N(0, 1) features. Both
+    compute the same f32 products; the kernel sums the channels in order,
+    the plain version in PyTorch's reduction order, so they differ by
+    summation rounding: max abs error <= 1e-5 (values ~N(0, 1/C)).
+
+    Bound per launch: the larger of 2*B*H*W*C*nd operations over
+    PEAK_FP32_FLOPS and 4*(2*B*H*W*C + B*H*W*nd) bytes (f1 and f2 read once,
+    the volume written once) over PEAK_BYTES_PER_S. One record per md, at
+    its finest level (level 2, the largest)."""
+    from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
+
+    records = []
+    pass_ms = pass_bound = 0.0
+    for md, C, H, W, per_pass in _flow_shapes():
+        g = torch.Generator(device=device).manual_seed(md * 1000 + C)
+        f1, f2 = (torch.randn(FLOW_B, C, H, W, generator=g, device=device) for _ in range(2))
+        kern = cc.correlation_cuda(f1, f2, md)
+        torch.cuda.synchronize()
+        err = (kern - cc.correlation_plain(f1, f2, md)).abs().max().item()
+        nd = (2 * md + 1) ** 2
+        what = f"correlation md={md} {FLOW_B}x{C}x{H}x{W}"
+        log(f"[flow] {what}: kernel vs plain max abs err {err:.3g}")
+        require(err <= 1e-5, f"{what}: kernel vs plain error {err} > 1e-5")
+        ops = 2 * FLOW_B * H * W * C * nd
+        nbytes = 4 * (2 * FLOW_B * H * W * C + FLOW_B * H * W * nd)
+        ms = time_cuda(lambda: cc.correlation_cuda(f1, f2, md), 20)
+        bound_ms, bound_by = _bound(ops, nbytes)
+        log(f"[flow] {what}: kernel {ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+            f"{per_pass} per pass")
+        pass_ms += ms * per_pass
+        pass_bound += bound_ms * per_pass
+        if H == FLOW_NET_HW[0] // 4:
+            records.append(_record(
+                f"correlation_md{md}", "correlation.cu", CORRELATION_TPU + ":29", ms,
+                lambda: cc.correlation_plain(f1, f2, md), ops, nbytes, err, what))
+    log(f"[flow] cost volumes of one pass at {FLOW_B} pairs: kernels {pass_ms:.4f} ms, "
+        f"bound {pass_bound:.4f} ms ({100 * pass_bound / pass_ms:.1f}% of bound)")
+    return records
+
+
+def _flow_net(torch, device):
+    """The frozen net with the seeded random weights of init_params."""
+    from acfm_video_3d_reconstruction_tpu_torch.flow import maskflownet as mfn
+
+    return mfn.build(mfn.init_params(torch.Generator().manual_seed(0)), device)
+
+
+def _rel(torch, a, b) -> float:
+    b = b.to(a.device)
+    return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+
+def phase_flow_small(torch, device):
+    """The net at 64x128, B=2, from the same weights on the card (kernel) and
+    on the CPU (plain version): every level's flow of both stages within
+    vector relative error 1e-3 (PyTorch's own f32 convolutions on the card
+    and on the CPU, summed in other orders)."""
+    net_gpu, net_cpu = _flow_net(torch, device), _flow_net(torch, "cpu")
+    rng = np.random.default_rng(3)
+    im0, im1 = (torch.from_numpy(rng.random((2, 3, 64, 128), np.float32) - 0.5) for _ in range(2))
+    with torch.no_grad():
+        s_gpu, _, _ = net_gpu.MaskFlownet_S(im0.to(device), im1.to(device))
+        s_cpu, _, _ = net_cpu.MaskFlownet_S(im0, im1)
+        p_gpu, _ = net_gpu(im0.to(device), im1.to(device))
+        p_cpu, _ = net_cpu(im0, im1)
+    errs = [_rel(torch, a, b) for a, b in zip(s_gpu + p_gpu, s_cpu + p_cpu)]
+    log(f"[flow] 64x128 net card vs cpu: flow6..flow2 rel err stage 1 "
+        f"{[f'{e:.3g}' for e in errs[:5]]}, stage 2 {[f'{e:.3g}' for e in errs[5:]]}")
+    require(max(errs) <= 1e-3, f"flow net card vs cpu: rel error {max(errs)} > 1e-3")
+
+
+@contextlib.contextmanager
+def plain_correlation():
+    """Within the block the cost volume runs correlation_plain on CUDA
+    tensors too (no kernel launch, no count): the flow path's reference."""
+    from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
+
+    kernel = cc.correlation_cuda
+    cc.correlation_cuda = cc.correlation_plain
+    try:
+        yield
+    finally:
+        cc.correlation_cuda = kernel
+
+
+def _conv_flops(torch, net, call) -> int:
+    """Operations (an FMA counts two) of the net's convolutions, transposed
+    and deformable convolutions in one call, counted by forward hooks."""
+    from acfm_video_3d_reconstruction_tpu_torch.flow.maskflownet import DeformConv3x3
+
+    total = 0
+
+    def hook(mod, inputs, output):
+        nonlocal total
+        w = mod.weight
+        if isinstance(mod, torch.nn.ConvTranspose2d):  # (Cin, Cout, kh, kw)
+            total += 2 * inputs[0].numel() * w[0].numel()
+        else:  # (Cout, Cin, kh, kw)
+            total += 2 * output.numel() * w[0].numel()
+
+    mods = [m for m in net.modules()
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, DeformConv3x3))]
+    handles = [m.register_forward_hook(hook) for m in mods]
+    try:
+        call()
+    finally:
+        for h in handles:
+            h.remove()
+    return total
+
+
+def phase_flow(torch, device, profile):
+    """The main flow path and the flow CLI's path on the card."""
+    from acfm_video_3d_reconstruction_tpu_torch.flow import infer
+
+    net = _flow_net(torch, device)
+    rng = np.random.default_rng(4)
+    clips = torch.from_numpy(rng.random((FLOW_B, 2, IMG, IMG, 3), np.float32)).to(device)
+    flow_fn = infer.make_flow_fn(net, IMG, FLOW_NET_HW)
+
+    def call():
+        return flow_fn({"img": clips})["optical_flows"]
+
+    first = call()  # warm-up
+    torch.cuda.synchronize()
+    out, rate, spread, launches = _timed(
+        torch, call, FLOW_WINDOWS, FLOW_CALLS, "make_flow_fn", batch=FLOW_B,
+        shape=f"{IMG}^2 clips of 2, net {FLOW_NET_HW}", unit="pairs")
+    n_calls = FLOW_WINDOWS * FLOW_CALLS
+    require(launches == only(corr_md4=5 * n_calls, corr_md2=10 * n_calls),
+            f"flow launches {launches} != 5 md=4 and 10 md=2 per call ({n_calls} calls)")
+    require(tuple(out.shape) == (FLOW_B, 2, IMG, IMG, 2), f"flow shape {tuple(out.shape)}")
+    require(bool(torch.isfinite(out).all()), "flow: not finite")
+    require(not bool(out[:, 1].any()), "flow: the last slot is not zero")
+    floor = _rel(torch, out, first)
+    with plain_correlation():
+        plain = call()
+    rel = _rel(torch, out, plain)
+    log(f"[flow] make_flow_fn kernel path vs correlation_plain: rel err {rel:.3g}; kernel path "
+        f"vs itself {floor:.3g}; flow |dx|, |dy| means {out[:, 0].abs().mean((0, 1, 2)).tolist()}")
+    require(rel <= 1e-4, f"flow kernel vs plain: rel error {rel} > 1e-4")
+    flops = _conv_flops(torch, net, call)
+    log(f"[flow] {flops / 1e12:.4f} TFLOP of convolutions per make_flow_fn call, "
+        f"{flops * rate / FLOW_B / 1e12:.2f} TFLOP/s at the median window")
+    if profile:
+        _profile(torch, call, profile, "make_flow_fn", f"{FLOW_B} pairs, net {FLOW_NET_HW}")
+
+    pair = torch.from_numpy(rng.random((2, 1) + NATIVE_HW + (3,), np.float32)).to(device)
+    zero_launches()
+    native = infer.predict_flow_native(net, pair[0], pair[1])
+    torch.cuda.synchronize()
+    native_launches = read_launches()
+    log(f"[flow] predict_flow_native on 1 pair at {NATIVE_HW}: launches {native_launches}")
+    require(native_launches == only(corr_md4=5, corr_md2=10),
+            f"native launches {native_launches} != 5 md=4 and 10 md=2")
+    require(tuple(native.shape) == (1,) + NATIVE_HW + (2,), f"native shape {native.shape}")
+    require(bool(torch.isfinite(native).all()), "native flow: not finite")
+    return rate, spread, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
-                    help="append torch.profiler tables of one eval and one train step here")
+                    help="append torch.profiler tables of one eval step, one train step and "
+                    "one make_flow_fn call here")
     args = ap.parse_args(argv)
 
     import torch
@@ -559,18 +791,29 @@ def main(argv=None) -> int:
     log(f"[main] template + model built in {time.perf_counter() - t0:.2f} s")
     eval_fps, eval_spread, eval_launches = phase_eval(torch, mods, batch, args.profile)
     train_fps, train_spread, train_launches = phase_train(torch, mods, batch, args.profile)
+    del mods, batch
+
+    records += phase_flow_kernels(torch, device)
+    phase_flow_small(torch, device)
+    flow_pps, flow_spread, flow_launches = phase_flow(torch, device, args.profile)
 
     counter = {"raster_fwd_soft": "soft", "raster_fwd_hard": "hard",
-               "raster_bwd_soft": "soft_bwd"}
+               "raster_bwd_soft": "soft_bwd", "correlation_md4": "corr_md4",
+               "correlation_md2": "corr_md2"}
     for r in records:
-        r["launches"] = eval_launches[counter[r["name"]]] + train_launches[counter[r["name"]]]
+        r["launches"] = sum(launches[counter[r["name"]]]
+                            for launches in (eval_launches, train_launches, flow_launches))
     n_eval, n_train = EVAL_WINDOWS * EVAL_STEPS, TRAIN_WINDOWS * TRAIN_STEPS
+    n_flow = FLOW_WINDOWS * FLOW_CALLS
     log("[result] " + json.dumps({
         "eval_frames_per_s_median": eval_fps, "eval_frames_per_s_spread": eval_spread,
         "train_frames_per_s_median": train_fps, "train_frames_per_s_spread": train_spread,
+        "flow_pairs_per_s_median": flow_pps, "flow_pairs_per_s_spread": flow_spread,
         "batch": B, "image_size": IMG, "eval_steps": n_eval, "train_steps": n_train,
+        "flow_pairs_per_call": FLOW_B, "flow_net_hw": FLOW_NET_HW, "flow_calls": n_flow,
         "launches_per_eval_step": {k: v / n_eval for k, v in eval_launches.items()},
-        "launches_per_train_step": {k: v / n_train for k, v in train_launches.items()}}))
+        "launches_per_train_step": {k: v / n_train for k, v in train_launches.items()},
+        "launches_per_flow_call": {k: v / n_flow for k, v in flow_launches.items()}}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

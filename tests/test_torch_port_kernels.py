@@ -1,4 +1,5 @@
-"""The binned rasterizer's CUDA kernels against their plain PyTorch versions.
+"""The port's CUDA kernels (the binned rasterizer's forward and backward,
+the flow net's cost volume) against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package, so it runs on a GPU
 machine without them:
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
 from acfm_video_3d_reconstruction_tpu_torch.geometry import camera, icosphere
 from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
 
@@ -22,7 +24,7 @@ IMG = 32
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: the rasterizer kernel runs only on the card")
+        pytest.skip("no CUDA device: the kernels run only on the card")
     return torch.device("cuda")
 
 
@@ -139,3 +141,28 @@ class TestKernelWrapper:
         assert rc.LAUNCHES["soft_bwd"] == before["soft_bwd"] + 1
         assert bool(torch.isfinite(proj.grad).all())
         assert proj.grad[..., :2].abs().sum() > 0
+
+
+class TestCorrelationKernel:
+    def test_correlation_cuda_refuses_cpu_tensors(self):
+        f = torch.zeros(1, 4, 6, 8)
+        with pytest.raises(ValueError):
+            cc.correlation_cuda(f, f, 4)
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("md", [4, 2])
+    @pytest.mark.parametrize("C,H,W", [(32, 96, 192), (196, 6, 12)], ids=["level2", "level6"])
+    def test_kernel_matches_plain(self, cuda_device, md, C, H, W):
+        """The kernel against correlation_plain at the full-width net's
+        level-2 and level-6 shapes (12 pairs of a 384x768 input), seeded
+        N(0, 1) features: atol 1e-5 (the same f32 products, summed over
+        the channels in another order), one launch per call."""
+        g = torch.Generator().manual_seed(md * 1000 + C)
+        f1, f2 = (torch.randn(12, C, H, W, generator=g).to(cuda_device) for _ in range(2))
+        before = dict(cc.LAUNCHES)
+        kern = cc.correlation(f1, f2, md)
+        torch.cuda.synchronize()
+        assert cc.LAUNCHES[f"corr_md{md}"] == before[f"corr_md{md}"] + 1
+        plain = cc.correlation_plain(f1, f2, md)
+        assert kern.shape == (12, (2 * md + 1) ** 2, H, W)
+        torch.testing.assert_close(kern, plain, atol=1e-5, rtol=0)
