@@ -15,7 +15,9 @@ So the port drops exactly the faces the TPU kernels drop.
 tensor and its plain PyTorch version (`forward_plain`) on a CPU tensor. It
 returns untiled (B, H, W) maps. In soft mode it goes through `SoftRasterize`,
 whose backward is the kernel csrc/raster_bwd.cu on a CUDA tensor and
-`backward_plain` on a CPU tensor.
+`backward_plain` on a CPU tensor. Both kernels skip the (pixel, slot) pairs
+outside `cull_windows`, which are out of radius; the plain versions walk
+every pair of a bin, and `cull_pair_counts` gives the pairs each walks.
 """
 from __future__ import annotations
 
@@ -140,6 +142,110 @@ def _face_tables(verts, faces, image_size, tile_h, tile_w, K, margin):
     safe = idx.clamp(min=0).reshape(B, T * K, 1).long().expand(-1, -1, 9)
     table = torch.gather(comp, 1, safe).reshape(B, T, K, 9)
     return table, idx
+
+
+# ------------------------------------------------------------ face culling --
+#
+# The kernels evaluate a (pixel, slot) pair only where the pixel centre lies
+# in the slot's window: the face's box widened by the cull margin m, or the
+# whole bin for a face whose f32 area is under the threshold below. Every
+# pair outside the window has in_radius == False under _face_geometry (the
+# proof is in csrc/raster_geometry.cuh; tests/test_torch_port_raster.py
+# checks it exhaustively), so skipping it changes no output bit: its log
+# term is +0 and it never wins the z-test. csrc/raster_geometry.cuh's
+# cull_window computes the same f32 expressions, constant for constant.
+
+CULL_MIN_MARGIN_PX = 1.0  # least cull margin, in pixels (hard mode's margin)
+FWD_PATCH = (4, 8)  # pixel patch of one warp in csrc/raster_fwd.cu (rows, cols)
+
+
+def cull_windows(table, image_size, tile_h, tile_w, blur_radius, soft) -> torch.Tensor:
+    """(B, T, K, 4) int32 bin-local pixel windows [x0, x1, y0, y1]
+    (inclusive; empty when x0 > x1 or y0 > y1) of every slot of `table`
+    (B, T, K, 9). A pixel of bin t outside its slot's window has
+    in_radius == False for that slot.
+
+    With the face box [xmin, xmax] x [ymin, ymax], the bin's pixel-centre
+    extent [qx0, qx1] x [qy0, qy1] and Dx = max(xmax - qx0, qx1 - xmin) (Dy
+    alike), Ex = xmax - xmin (Ey alike):
+      m = max(sqrt(blur)(1 + 2^-12) + 2^-18 (Dx + Dy + Ex + Ey + 4), 1 px),
+          with blur = blur_radius in soft mode and 0 in hard mode;
+      T = max(2^-24 (64 Dx Dy max(Dx, Dy) / m + 16 Ex Ey), 1e-12);
+      a slot with |area| < T (or a NaN area) gets the whole bin, any other
+      the pixel centres within [xmin - m, xmax + m] x [ymin - m, ymax + m].
+    Every operation is the kernels' f32 operation, in their order.
+    """
+    B, T, K, _ = table.shape
+    f32 = table.new_tensor  # an f32 scalar on table's device
+    S, one, half = f32(float(image_size)), f32(1.0), f32(0.5)
+    n_bx = image_size // tile_w
+    t = torch.arange(T, device=table.device)
+    bx0 = ((t % n_bx) * tile_w).float()[None, :, None]
+    by0 = ((t // n_bx) * tile_h).float()[None, :, None]
+
+    def centre(i):  # the kernels' pixel centre, (2i + 1) / S - 1
+        return (f32(2.0) * i + one) / S - one
+
+    qx0, qx1 = centre(bx0), centre(bx0 + float(tile_w - 1))
+    qy0, qy1 = centre(by0), centre(by0 + float(tile_h - 1))
+    ax, ay, bx, by, cx, cy = table[..., :6].unbind(-1)
+    xmin = torch.minimum(torch.minimum(ax, bx), cx)
+    xmax = torch.maximum(torch.maximum(ax, bx), cx)
+    ymin = torch.minimum(torch.minimum(ay, by), cy)
+    ymax = torch.maximum(torch.maximum(ay, by), cy)
+    area = _fma(bx - ax, cy - ay, -((by - ay) * (cx - ax)))
+    Dx = torch.maximum(xmax - qx0, qx1 - xmin)
+    Dy = torch.maximum(ymax - qy0, qy1 - ymin)
+    Ex, Ey = xmax - xmin, ymax - ymin
+    pad = f32(2.0 ** -18) * ((((Dx + Dy) + Ex) + Ey) + f32(4.0))
+    blur = f32(blur_radius if soft else 0.0)
+    m = torch.maximum(torch.sqrt(blur) * f32(1.0 + 2.0 ** -12) + pad,
+                      f32(CULL_MIN_MARGIN_PX) * f32(2.0) / S)
+    Dm = torch.maximum(Dx, Dy)
+    thresh = torch.clamp(f32(2.0 ** -24) * (f32(64.0) * ((Dx * Dy) * Dm) / m
+                                            + f32(16.0) * (Ex * Ey)), min=1e-12)
+    whole = ~(torch.abs(area) >= thresh)
+    hs = S * half
+
+    def first(lo, origin, size):  # first bin-local pixel with centre >= lo
+        return torch.clamp(torch.ceil((lo + one) * hs - half) - origin, 0.0, float(size))
+
+    def last(hi, origin, size):  # last bin-local pixel with centre <= hi
+        return torch.clamp(torch.floor((hi + one) * hs - half) - origin, -1.0, float(size - 1))
+
+    x0, x1 = first(xmin - m, bx0, tile_w), last(xmax + m, bx0, tile_w)
+    y0, y1 = first(ymin - m, by0, tile_h), last(ymax + m, by0, tile_h)
+    zero = torch.zeros_like(x0)
+    x0, y0 = torch.where(whole, zero, x0), torch.where(whole, zero, y0)
+    x1 = torch.where(whole, zero + float(tile_w - 1), x1)
+    y1 = torch.where(whole, zero + float(tile_h - 1), y1)
+    return torch.stack([x0, x1, y0, y1], -1).to(torch.int32)
+
+
+def cull_pair_counts(windows, idx, tile_h, tile_w, patch=FWD_PATCH) -> dict:
+    """(pixel, slot) pair counts over the valid slots of `idx`:
+      bin:    every pixel of the bin (what the kernels walked before culling);
+      patch:  the pixels of every patch of `patch` (rows, cols) pixels that
+              meets the window (the forward kernel's granularity);
+      warp:   each window's pixels rounded up to whole warps of 32 (the
+              backward kernel's granularity);
+      needed: the window's pixels (the work these inputs need)."""
+    valid = idx >= 0
+    w = windows[valid].long()
+    x0, x1, y0, y1 = w.unbind(-1)
+    nx, ny = (x1 - x0 + 1).clamp(min=0), (y1 - y0 + 1).clamp(min=0)
+    needed = nx * ny
+    ph, pw = patch
+
+    def patch_pixels(lo, hi, n, size, p):
+        # pixels of the bin in the patches (along one axis) that meet [lo, hi]
+        first, last = lo.div(p, rounding_mode="floor"), hi.div(p, rounding_mode="floor")
+        span = (torch.clamp((last + 1) * p, max=size) - first * p).clamp(min=0)
+        return torch.where(n > 0, span, torch.zeros_like(span))
+
+    patch_px = patch_pixels(x0, x1, nx, tile_w, pw) * patch_pixels(y0, y1, ny, tile_h, ph)
+    return {"bin": int(valid.sum()) * tile_h * tile_w, "patch": int(patch_px.sum()),
+            "warp": int(((needed + 31) // 32 * 32).sum()), "needed": int(needed.sum())}
 
 
 # ------------------------------------------------------- plain PyTorch path --
@@ -343,6 +449,53 @@ def _function(source, name, argtypes):
     return fn
 
 
+# the C entries' arguments: acfm_raster_fwd(table, idx, counts, five outputs,
+# B, T, K, image_size, tile_h, tile_w, sigma, blur_radius, soft, stream) and
+# acfm_raster_bwd(table, counts, dS, grad, B, T, K, image_size, tile_h,
+# tile_w, sigma, blur_radius, stream)
+FWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+
+
+def fwd_entry():
+    return _function("raster_fwd.cu", "acfm_raster_fwd", FWD_ARGTYPES)
+
+
+def bwd_entry():
+    return _function("raster_bwd.cu", "acfm_raster_bwd", BWD_ARGTYPES)
+
+
+def launch_fwd(fn, table, idx, counts, out, image_size, tile_h, tile_w, sigma, blur_radius,
+               soft):
+    """One launch of a forward C entry `fn` (fwd_entry(), or another build's)
+    on contiguous CUDA tensors: counts (B, T) int32 valid slots per bin, out
+    the five (B, H, W) maps it writes. forward_cuda's launch; timing code
+    calls it with counts and outputs made once."""
+    B, T, K, _ = table.shape
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = fn(table.data_ptr(), idx.data_ptr(), counts.data_ptr(),
+                 *(t.data_ptr() for t in out), B, T, K, image_size, tile_h,
+                 tile_w, sigma, blur_radius, int(soft), stream)
+    if err:
+        raise RuntimeError(f"raster_fwd kernel launch failed: CUDA error {err}")
+
+
+def launch_bwd(fn, table, counts, dS, grad, image_size, tile_h, tile_w, sigma, blur_radius):
+    """One launch of a backward C entry `fn` (bwd_entry(), or another
+    build's) on contiguous CUDA tensors, writing grad (B, T, K, 9).
+    backward_cuda's launch; timing code calls it like launch_fwd."""
+    B, T, K, _ = table.shape
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = fn(table.data_ptr(), counts.data_ptr(), dS.data_ptr(), grad.data_ptr(), B, T, K,
+                 image_size, tile_h, tile_w, sigma, blur_radius, stream)
+    if err:
+        raise RuntimeError(f"raster_bwd kernel launch failed: CUDA error {err}")
+
+
 def _check_bins(table, idx, image_size, tile_h, tile_w, what):
     if not (table.is_cuda and idx.is_cuda):
         raise ValueError(f"{what} takes CUDA tensors")
@@ -360,13 +513,11 @@ def forward_cuda(table, idx, image_size, tile_h, tile_w, sigma, blur_radius,
                  soft) -> BinnedFrags:
     """Launch csrc/raster_fwd.cu on the bin tables (CUDA tensors)."""
     _check_bins(table, idx, image_size, tile_h, tile_w, "forward_cuda")
-    B, T, K, _ = table.shape
-    fn = _function("raster_fwd.cu", "acfm_raster_fwd", [ctypes.c_void_p] * 8 + [
-        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn = fwd_entry()
     table = table.contiguous()
     idx = idx.contiguous()
     counts = (idx >= 0).sum(-1, dtype=torch.int32).contiguous()
-    shape = (B, image_size, image_size)
+    shape = (table.shape[0], image_size, image_size)
     out = BinnedFrags(
         S=torch.empty(shape, dtype=torch.float32, device=table.device),
         pix_to_face=torch.empty(shape, dtype=torch.int32, device=table.device),
@@ -374,13 +525,7 @@ def forward_cuda(table, idx, image_size, tile_h, tile_w, sigma, blur_radius,
         b1=torch.empty(shape, dtype=torch.float32, device=table.device),
         zbuf=torch.empty(shape, dtype=torch.float32, device=table.device),
     )
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = fn(table.data_ptr(), idx.data_ptr(), counts.data_ptr(),
-                 *(t.data_ptr() for t in out), B, T, K, image_size, tile_h,
-                 tile_w, sigma, blur_radius, int(soft), stream)
-    if err:
-        raise RuntimeError(f"raster_fwd kernel launch failed: CUDA error {err}")
+    launch_fwd(fn, table, idx, counts, out, image_size, tile_h, tile_w, sigma, blur_radius, soft)
     LAUNCHES["soft" if soft else "hard"] += 1
     return out
 
@@ -392,20 +537,12 @@ def backward_cuda(table, idx, dS, image_size, tile_h, tile_w, sigma,
     B, T, K, _ = table.shape
     if not dS.is_cuda or tuple(dS.shape) != (B, image_size, image_size):
         raise ValueError(f"dS must be a CUDA (B, H, W) map, got {tuple(dS.shape)}")
-    if tile_h * tile_w > 16 * 128:
-        raise ValueError(f"bins of {tile_h}x{tile_w} exceed the kernel's 2048 pixels")
-    fn = _function("raster_bwd.cu", "acfm_raster_bwd", [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    fn = bwd_entry()
     table = table.contiguous()
     dS = dS.float().contiguous()
     counts = (idx >= 0).sum(-1, dtype=torch.int32).contiguous()
     grad = torch.empty_like(table)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = fn(table.data_ptr(), counts.data_ptr(), dS.data_ptr(), grad.data_ptr(), B, T, K,
-                 image_size, tile_h, tile_w, sigma, blur_radius, stream)
-    if err:
-        raise RuntimeError(f"raster_bwd kernel launch failed: CUDA error {err}")
+    launch_bwd(fn, table, counts, dS, grad, image_size, tile_h, tile_w, sigma, blur_radius)
     LAUNCHES["soft_bwd"] += 1
     return grad
 

@@ -5,11 +5,23 @@
 
 Phases, each of which raises (exit code 1) on failure:
   1. build: compiles every CUDA source of the port with nvcc (sm_90a).
-  2. kernels: the binned rasterizer's forward kernel, soft and hard, and
-     its soft backward kernel against their plain PyTorch versions at full
-     width (B=16, 256^2, the 1280-face icosphere, K from auto_K), with the
-     tolerances stated below; times each kernel, its plain version, the bin
-     pass and the bound.
+  2. kernels: the cull census of the full-width scene (B=16, 256^2, the
+     1280-face icosphere, K from auto_K) on the card, in three modes: every
+     (pixel, slot) pair outside its cull window must be out of radius under
+     the plain geometry (ops/raster_checks.py::cull_census). Then the
+     binned rasterizer's forward kernel, soft and hard, and its soft
+     backward kernel against their plain PyTorch versions on that scene
+     (ops/raster_checks.py's tolerances; pix_to_face equal on every pixel);
+     times each kernel alone (its C entry on counts and outputs made once;
+     the wrapper's call is logged beside it), its plain version and the
+     bin pass; prints four
+     (pixel, slot) pair counts per kernel (the bins' pairs, the pairs at
+     the kernel's own cull granularity, the pairs inside the cull windows,
+     the pairs in radius) and takes the bound from the last two: the full
+     per-pair work for each pair in radius, the tests alone for the other
+     pairs inside the windows. Then the census and the same checks on
+     adversarial_scene (zero-area faces on pixel-centre lines, repeated
+     vertices, slivers at the cull's area threshold).
   3. small: the eval step and one train step at the CPU tests' config
      (64^2, f32) on the card against the same weights on the CPU.
   4. main paths, at bench.py's shape (batch 16, 256^2, subdivide 3, 16
@@ -69,6 +81,10 @@ PEAK_BYTES_PER_S = 3.35e12
 # csrc/raster_bwd.cu.
 OPS_PER_PAIR = {"soft": 99, "hard": 47, "soft_bwd": 130}
 OPS_PER_FACE = {"soft": 28, "hard": 10, "soft_bwd": 28}
+# Of OPS_PER_PAIR, the inside test (pixel-relative differences, sub-areas,
+# divides, the test itself) and, soft, the distance and radius tests: all
+# that a pair out of radius needs.
+OPS_TEST = {"soft": 68, "hard": 23, "soft_bwd": 68}
 # The well-conditioned sigma / blur of tests/test_rasterizer_tpu.py's
 # gradient parity: at sigma=1e-4 a vertex gradient amplifies an f32
 # rounding of the vertex positions by ~1/sigma near silhouette edges.
@@ -124,86 +140,136 @@ def phase_build():
     return secs
 
 
-def _scene(torch, device, seed=0):
-    from acfm_video_3d_reconstruction_tpu_torch.geometry import camera, icosphere
-
-    v, f = icosphere.icosphere(3)
-    rng = np.random.default_rng(seed)
-    q = rng.normal(size=(B, 4))
-    q /= np.linalg.norm(q, axis=1, keepdims=True)
-    cams = np.concatenate(
-        [rng.uniform(0.6, 0.95, (B, 1)), rng.uniform(-0.1, 0.1, (B, 2)), q], 1
-    ).astype(np.float32)
-    verts = torch.tensor(v, dtype=torch.float32, device=device)[None].repeat(B, 1, 1) * 0.7
-    proj = camera.orthographic_proj_withz(verts, torch.tensor(cams, device=device), offset_z=5.0)
-    return proj, torch.tensor(f, dtype=torch.long, device=device)
-
-
 def phase_kernels(torch, device):
-    """Kernel vs plain version, both modes, at the main path's shapes.
-
-    Tolerances (those of tests/test_rasterizer_tpu.py): mask atol 2e-4;
-    pix_to_face agreeing on > 99.9% of pixels; barycentrics atol 1e-4 and
-    zbuf atol 1e-5 where pix_to_face agrees. The two run the same f32
-    arithmetic with the same FMAs; they differ in S's summation order, the
-    card's expf/log1pf against PyTorch's, and rare double roundings of the
-    plain version's emulated FMA.
+    """Kernel vs plain version, both modes, at the main path's shapes, with
+    ops/raster_checks.py's tolerances: pix_to_face equal on every pixel,
+    barycentrics within 1e-4 and zbuf within 1e-5 where a face is hit, mask
+    within 2e-4; the backward's rows within relative error 1e-4, z columns
+    and invalid slots exactly 0. Before them, the cull census of the same
+    scene in three modes: no pair outside its cull window is in radius.
+    Then the same checks on adversarial_scene.
     """
+    from acfm_video_3d_reconstruction_tpu_torch.ops import raster_checks as chk
     from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
 
-    proj, faces = _scene(torch, device)
+    proj, faces = chk.icosphere_scene(B, device)
     F = faces.shape[0]
     K = rc.auto_K(F, IMG, 192)
     ovf = rc.bin_overflow_counts(proj, faces, IMG, K)
+    log(f"[kernels] scene B={B} {IMG}^2 F={F} K={K}; bin_overflow_counts max {int(ovf.max())}")
+    in_radius = _cull_census(rc, chk, proj, faces, K, IMG, "full width")
     records = []
     for soft in (True, False):
         mode = "soft" if soft else "hard"
         blur = rc.BLUR_RADIUS if soft else 0.0
         table, idx, th, tw = rc.bin_faces(proj, faces, IMG, K, blur)
-        if soft:
-            log(f"[kernels] scene B={B} {IMG}^2 F={F} K={table.shape[2]} bins {th}x{tw}; "
-                f"bin_overflow_counts max {int(ovf.max())}")
         kern = rc.forward_cuda(table, idx, IMG, th, tw, rc.SIGMA, blur, soft)
         torch.cuda.synchronize()
         plain = rc.forward_plain(table, idx, IMG, th, tw, rc.SIGMA, blur, soft)
-        agree = kern.pix_to_face == plain.pix_to_face
-        frac = agree.float().mean().item()
-        hit = agree & (plain.pix_to_face >= 0)
-        err_b = max((kern.b0 - plain.b0)[hit].abs().max().item(),
-                    (kern.b1 - plain.b1)[hit].abs().max().item())
-        err_z = (kern.zbuf - plain.zbuf)[hit].abs().max().item()
-        err_m = (torch.exp(kern.S) - torch.exp(plain.S)).abs().max().item() if soft else 0.0
-        log(f"[kernels] {mode}: p2f agree {frac:.6f}, bary err {err_b:.3g}, "
-            f"zbuf err {err_z:.3g}, mask err {err_m:.3g}")
-        require(frac > 0.999, f"{mode}: pix_to_face agreement {frac} <= 0.999")
-        require(err_b <= 1e-4, f"{mode}: barycentric error {err_b} > 1e-4")
-        require(err_z <= 1e-5, f"{mode}: zbuf error {err_z} > 1e-5")
-        require(err_m <= 2e-4, f"{mode}: mask error {err_m} > 2e-4")
+        errs, line = chk.check_forward(kern, plain, mode)
+        log(f"[kernels] {line}")
 
         bin_ms = time_cuda(lambda: rc.bin_faces(proj, faces, IMG, K, blur), 10)
         log(f"[kernels] {mode}: bin pass {bin_ms:.4f} ms")
         # table f32, idx int32, counts (B, T) int32 in; five (B, H, W) maps out
         nbytes = (table.numel() + idx.numel() + idx[..., 0].numel() + 5 * B * IMG * IMG) * 4
+        counts = (idx >= 0).sum(-1, dtype=torch.int32)
+        ms = _kernel_ms(mode, lambda: rc.launch_fwd(
+            rc.fwd_entry(), table, idx, counts, kern, IMG, th, tw, rc.SIGMA, blur, soft),
+            lambda: rc.forward_cuda(table, idx, IMG, th, tw, rc.SIGMA, blur, soft))
         records.append(_record(
-            f"raster_fwd_{mode}", "raster_fwd.cu", RASTER_TPU + ":259",
-            time_cuda(lambda: rc.forward_cuda(table, idx, IMG, th, tw, rc.SIGMA, blur, soft), 20),
+            f"raster_fwd_{mode}", "raster_fwd.cu", RASTER_TPU + ":259", ms,
             lambda: rc.forward_plain(table, idx, IMG, th, tw, rc.SIGMA, blur, soft),
-            _raster_ops(mode, idx, th * tw, F), nbytes, max(err_b, err_z, err_m), mode))
-    records.append(_backward_record(torch, rc, proj, faces, K))
+            _raster_ops(rc, mode, table, idx, th, tw, blur, F, nbytes, in_radius[mode]), nbytes,
+            max(errs["bary"], errs["zbuf"], errs["mask"]), mode))
+    records.append(_backward_record(torch, rc, chk, proj, faces, K, in_radius["soft"]))
+    _adversarial(torch, rc, chk, device)
     return records
+
+
+def _kernel_ms(what, launch, call):
+    """Milliseconds per launch of a rasterizer kernel alone (`launch`: its C
+    entry on counts and outputs made once), which the record keeps, and per
+    wrapper `call` (which also reduces idx to counts and allocates its
+    outputs each time; at ~0.05 ms a kernel the host then sets the pace),
+    which is logged beside it."""
+    ms, call_ms = time_cuda(launch, 20), time_cuda(call, 20)
+    log(f"[kernels] {what}: kernel alone {ms:.4f} ms per launch, wrapper call {call_ms:.4f} ms")
+    return ms
+
+
+def _cull_census(rc, chk, verts, faces, K, size, what):
+    """raster_checks.cull_census of the scene, binned as the main path bins
+    it, in three modes: soft at sigma 1e-4 (production), soft at
+    SIGMA_WIDE / BLUR_WIDE, hard. Fails if any pair outside its cull window
+    is in radius. Returns the in-radius pairs of the soft (sigma 1e-4) and
+    hard modes."""
+    in_radius = {}
+    for mode, sigma, blur, soft in (("soft", rc.SIGMA, rc.BLUR_RADIUS, True),
+                                    ("soft_wide", SIGMA_WIDE, BLUR_WIDE, True),
+                                    ("hard", rc.SIGMA, 0.0, False)):
+        table, idx, th, tw = rc.bin_faces(verts, faces, size, K, blur)
+        c = chk.cull_census(table, idx, size, th, tw, sigma, blur, soft)
+        log(f"[kernels] cull census, {what} {mode} (sigma {sigma:g}, blur {blur:.4g}): "
+            f"{c['pairs']} bin pairs, {c['excluded']} outside the windows, of them "
+            f"{c['excluded_in_radius']} in radius; {c['in_radius']} pairs in radius; "
+            f"{int(c['whole'].sum())} of {int((idx >= 0).sum())} slots keep the whole bin")
+        require(c["excluded_in_radius"] == 0,
+                f"cull census {what} {mode}: {c['excluded_in_radius']} excluded pairs in radius")
+        in_radius[mode] = c["in_radius"]
+    return in_radius
+
+
+def _adversarial(torch, rc, chk, device):
+    """Both kernels against their plain versions on adversarial_scene at
+    IMG^2 (two views), whose degenerate faces the cull must keep whole; its
+    cull census first."""
+    verts, faces, degenerate = chk.adversarial_scene(IMG)
+    verts, faces = torch.from_numpy(verts).to(device), torch.from_numpy(faces).to(device)
+    degenerate = torch.from_numpy(degenerate).to(device, torch.int32)
+    _cull_census(rc, chk, verts, faces, 192, IMG, "adversarial")
+    dS = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(verts.shape[0], IMG, IMG)).astype(np.float32)).to(device)
+    for soft in (True, False):
+        blur = rc.BLUR_RADIUS if soft else 0.0
+        table, idx, th, tw = rc.bin_faces(verts, faces, IMG, 192, blur)
+        kern = rc.forward_cuda(table, idx, IMG, th, tw, rc.SIGMA, blur, soft)
+        torch.cuda.synchronize()
+        plain = rc.forward_plain(table, idx, IMG, th, tw, rc.SIGMA, blur, soft)
+        log("[kernels] " + chk.check_forward(
+            kern, plain, f"adversarial {'soft' if soft else 'hard'}", degenerate)[1])
+    for sigma, blur in ((SIGMA_WIDE, BLUR_WIDE), (rc.SIGMA, rc.BLUR_RADIUS)):
+        table, idx, th, tw = rc.bin_faces(verts, faces, IMG, 192, blur)
+        log("[kernels] " + chk.check_backward(table, idx, dS, IMG, th, tw, sigma, blur,
+                                              "adversarial soft_bwd")[1])
 
 
 RASTER_TPU = "acfm_video_3d_reconstruction_tpu/ops/rasterizer_tpu.py"
 CORRELATION_TPU = "acfm_video_3d_reconstruction_tpu/flow/correlation_pallas.py"
+# the granularity at which each kernel walks pairs (rasterizer_cuda.cull_pair_counts)
+GRANULARITY = {"soft": "patch", "hard": "patch", "soft_bwd": "warp"}
 
 
-def _raster_ops(mode, idx, bin_pixels, n_faces):
-    """fp32 operations a rasterizer kernel's function needs: OPS_PER_PAIR for
-    each (pixel, valid slot) pair of idx's bins, OPS_PER_FACE once per
-    (view, face)."""
-    pairs = int((idx >= 0).sum()) * bin_pixels
-    log(f"[kernels] {mode}: {pairs} (pixel, slot) pairs")
-    return pairs * OPS_PER_PAIR[mode] + B * n_faces * OPS_PER_FACE[mode]
+def _raster_ops(rc, mode, table, idx, th, tw, blur, n_faces, nbytes, in_radius):
+    """fp32 operations a rasterizer kernel's function needs on these inputs:
+    OPS_PER_PAIR for each of the `in_radius` pairs, OPS_TEST for each other
+    pair inside the cull windows (cull_pair_counts "needed"), which needs
+    only the inside and distance tests, and OPS_PER_FACE once per (view,
+    face). Logs the bins' pairs (the walk before culling), the pairs at the
+    kernel's own granularity, the needed pairs and the in-radius pairs,
+    with the bound that each of the first three gives at OPS_PER_PAIR (and
+    `nbytes`)."""
+    soft = mode != "hard"
+    counts = rc.cull_pair_counts(rc.cull_windows(table, IMG, th, tw, blur, soft), idx, th, tw)
+    faces_ops = B * n_faces * OPS_PER_FACE[mode]
+    bounds = {k: _bound(counts[k] * OPS_PER_PAIR[mode] + faces_ops, nbytes)[0]
+              for k in ("bin", GRANULARITY[mode], "needed")}
+    log(f"[kernels] {mode}: (pixel, slot) pairs: bins {counts['bin']}, kernel's granularity "
+        f"({GRANULARITY[mode]}) {counts[GRANULARITY[mode]]}, needed {counts['needed']}, in "
+        f"radius {in_radius}; bound from the first three at full pair cost "
+        f"{bounds['bin']:.4f} / {bounds[GRANULARITY[mode]]:.4f} / {bounds['needed']:.4f} ms")
+    return (in_radius * OPS_PER_PAIR[mode] + (counts["needed"] - in_radius) * OPS_TEST[mode]
+            + faces_ops)
 
 
 def _bound(ops, nbytes):
@@ -231,38 +297,28 @@ def _record(name, source, replaces, ms, plain, ops, nbytes, max_abs_err, what):
     }
 
 
-def _backward_record(torch, rc, proj, faces, K):
+def _backward_record(torch, rc, chk, proj, faces, K, in_radius):
     """The soft backward kernel against backward_plain for a seeded dL/dS,
-    at sigma=1e-4 (production) and at SIGMA_WIDE / BLUR_WIDE. The two run
-    the same f32 arithmetic per (pixel, slot) and sum over a bin's pixels
-    in another order, so the rows differ by summation rounding only:
-    vector relative error <= 1e-4. The z columns and every slot past a
-    bin's count must be exactly 0 (an invalid slot gathers face 0). Timed
-    at sigma=1e-4 on the soft bin pass, whose time phase_kernels gives."""
+    at sigma=1e-4 (production) and at SIGMA_WIDE / BLUR_WIDE
+    (raster_checks.check_backward). Timed at sigma=1e-4 on the soft bin
+    pass, whose time phase_kernels gives."""
     dS = torch.from_numpy(
         np.random.default_rng(2).normal(size=(B, IMG, IMG)).astype(np.float32)).to(proj.device)
     for sigma, blur in ((SIGMA_WIDE, BLUR_WIDE), (rc.SIGMA, rc.BLUR_RADIUS)):
         table, idx, th, tw = rc.bin_faces(proj, faces, IMG, K, blur)
-        kern = rc.backward_cuda(table, idx, dS, IMG, th, tw, sigma, blur)
-        torch.cuda.synchronize()
-        plain = rc.backward_plain(table, idx, dS, IMG, th, tw, sigma, blur)
-        rel = (torch.linalg.vector_norm(kern - plain) / torch.linalg.vector_norm(plain)).item()
-        err = (kern - plain).abs().max().item()
-        nz_z = int(torch.count_nonzero(kern[..., 6:]))
-        nz_bad = int(torch.count_nonzero(kern[idx < 0]))
-        log(f"[kernels] soft_bwd sigma {sigma:g} blur {blur:.4g}: rows rel err {rel:.3g}, "
-            f"max abs err {err:.3g} (rows up to {plain.abs().max().item():.4g}); nonzero z "
-            f"entries {nz_z}, nonzero invalid-slot entries {nz_bad}")
-        require(rel <= 1e-4, f"soft_bwd sigma {sigma}: rows rel error {rel} > 1e-4")
-        require(nz_z == 0 and nz_bad == 0, f"soft_bwd sigma {sigma}: z / invalid rows not 0")
+        err, line = chk.check_backward(table, idx, dS, IMG, th, tw, sigma, blur, "soft_bwd")
+        log(f"[kernels] {line}")
     # table and rows (B, T, K, 9) f32, counts (B, T) int32, dL/dS (B, H, W) f32
     nbytes = 2 * table.numel() * 4 + idx[..., 0].numel() * 4 + dS.numel() * 4
+    counts, grad = (idx >= 0).sum(-1, dtype=torch.int32), torch.empty_like(table)
+    ms = _kernel_ms("soft_bwd", lambda: rc.launch_bwd(
+        rc.bwd_entry(), table, counts, dS, grad, IMG, th, tw, rc.SIGMA, rc.BLUR_RADIUS),
+        lambda: rc.backward_cuda(table, idx, dS, IMG, th, tw, rc.SIGMA, rc.BLUR_RADIUS))
     return _record(
-        "raster_bwd_soft", "raster_bwd.cu", RASTER_TPU + ":449",
-        time_cuda(lambda: rc.backward_cuda(table, idx, dS, IMG, th, tw, rc.SIGMA,
-                                           rc.BLUR_RADIUS), 20),
+        "raster_bwd_soft", "raster_bwd.cu", RASTER_TPU + ":449", ms,
         lambda: rc.backward_plain(table, idx, dS, IMG, th, tw, rc.SIGMA, rc.BLUR_RADIUS),
-        _raster_ops("soft_bwd", idx, th * tw, faces.shape[0]), nbytes, err, "soft_bwd")
+        _raster_ops(rc, "soft_bwd", table, idx, th, tw, rc.BLUR_RADIUS, faces.shape[0],
+                    nbytes, in_radius), nbytes, err, "soft_bwd")
 
 
 def _bench_batch(num_kps=15):

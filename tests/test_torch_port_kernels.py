@@ -14,6 +14,7 @@ import torch
 
 from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
 from acfm_video_3d_reconstruction_tpu_torch.geometry import camera, icosphere
+from acfm_video_3d_reconstruction_tpu_torch.ops import raster_checks as chk
 from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
 
 torch.set_num_threads(1)
@@ -126,6 +127,31 @@ class TestKernelWrapper:
             assert rel.item() <= 1e-4, (sigma, rel.item())
             assert torch.count_nonzero(kern[..., 6:]) == 0
             assert torch.count_nonzero(kern[idx < 0]) == 0
+
+    @pytest.mark.cuda
+    @pytest.mark.parametrize("size", [32, 256])
+    def test_adversarial_scene_matches_plain(self, cuda_device, size):
+        """raster_checks.adversarial_scene (zero-area faces on pixel-centre
+        lines, repeated vertices, slivers on both sides of the cull's area
+        threshold): both forward modes within raster_checks.check_forward,
+        pix_to_face equal on every pixel, degenerate faces' included (the
+        cull keeps such faces' whole bin); the backward rows within relative
+        error 1e-4 at both sigmas, z columns and invalid slots exactly 0."""
+        verts, faces, degenerate = chk.adversarial_scene(size)
+        verts, faces = torch.from_numpy(verts).to(cuda_device), torch.from_numpy(faces).to(
+            cuda_device)
+        degenerate = torch.from_numpy(degenerate).to(cuda_device, torch.int32)
+        for soft in (True, False):
+            blur = rc.BLUR_RADIUS if soft else 0.0
+            table, idx, th, tw = rc.bin_faces(verts, faces, size, 192, blur)
+            kern = rc.forward_cuda(table, idx, size, th, tw, rc.SIGMA, blur, soft)
+            plain = rc.forward_plain(table, idx, size, th, tw, rc.SIGMA, blur, soft)
+            chk.check_forward(kern, plain, f"adversarial {size}^2", degenerate)
+        dS = torch.from_numpy(np.random.default_rng(5).normal(
+            size=(verts.shape[0], size, size)).astype(np.float32)).to(cuda_device)
+        for sigma, blur in ((rc.SIGMA, rc.BLUR_RADIUS), (5e-3, 6e-2)):
+            table, idx, th, tw = rc.bin_faces(verts, faces, size, 192, blur)
+            chk.check_backward(table, idx, dS, size, th, tw, sigma, blur, f"adversarial {size}^2")
 
     @pytest.mark.cuda
     def test_backward_counts_one_launch(self, cuda_device):

@@ -23,6 +23,7 @@ import torch
 from acfm_video_3d_reconstruction_tpu.geometry import camera, icosphere
 from acfm_video_3d_reconstruction_tpu.ops import rasterizer as jref
 from acfm_video_3d_reconstruction_tpu.ops import rasterizer_tpu as jtpu
+from acfm_video_3d_reconstruction_tpu_torch.ops import raster_checks as chk
 from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer as ras
 from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
 
@@ -310,6 +311,98 @@ class TestPublicFunctions:
         vis_j = jref.visible_vertices(jnp.asarray(p2f), jnp.asarray(faces), V)
         vis_t = ras.visible_vertices(_t(p2f), _t(faces), V)
         np.testing.assert_array_equal(vis_t.numpy(), np.asarray(vis_j))
+
+
+CULL_MODES = {"soft_sigma1e-4": (rc.SIGMA, rc.BLUR_RADIUS, True),
+              "soft_sigma5e-3": (5e-3, 6e-2, True),
+              "hard": (rc.SIGMA, rc.BLUR_RADIUS, False)}
+
+
+def _cull_census(verts, faces, size, mode):
+    """raster_checks.cull_census of verts, binned as the kernels' callers
+    bin them, in one of CULL_MODES."""
+    sigma, blur, soft = CULL_MODES[mode]
+    K = rc.auto_K(faces.shape[0], size, 192)
+    table, idx, th, tw = rc.bin_faces(verts, faces, size, K, blur)
+    return chk.cull_census(table, idx, size, th, tw, sigma, blur, soft)
+
+
+class TestCullWindows:
+    """rc.cull_windows, the predicate both kernels cull with: every pair it
+    excludes must have in_radius == False under _face_geometry, so that
+    skipping it changes no output bit (csrc/raster_geometry.cuh)."""
+
+    @pytest.mark.parametrize("mode", list(CULL_MODES))
+    @pytest.mark.parametrize("size,subdivide", [(32, 2), (64, 3), (96, 2)])
+    def test_icosphere_pairs_outside_windows_are_out_of_radius(self, size, subdivide, mode):
+        verts, faces = chk.icosphere_scene(4, subdivide=subdivide)
+        c = _cull_census(verts, faces, size, mode)
+        assert c["excluded_in_radius"] == 0
+        assert c["excluded"] > c["pairs"] // 2  # the cull does exclude most pairs
+
+    @pytest.mark.parametrize("mode", list(CULL_MODES))
+    @pytest.mark.parametrize("size", [32, 64])
+    def test_adversarial_pairs_outside_windows_are_out_of_radius(self, size, mode):
+        """Zero-area faces on pixel-centre lines, repeated vertices and
+        slivers on both sides of the area threshold: the degenerate faces
+        keep the whole bin, the slivers over the threshold are culled, and
+        no excluded pair is in radius."""
+        verts, faces, degenerate = chk.adversarial_scene(size)
+        verts, faces = torch.from_numpy(verts), torch.from_numpy(faces)
+        c = _cull_census(verts, faces, size, mode)
+        whole = c["whole"]
+        assert c["excluded_in_radius"] == 0
+        assert c["excluded"] > 0
+        sigma, blur, soft = CULL_MODES[mode]
+        table, idx, th, tw = rc.bin_faces(verts, faces, size, 192, blur)
+        deg = (idx >= 0) & torch.isin(idx, torch.from_numpy(degenerate).int())
+        zero_area = deg & (idx % faces.shape[0] < 30)  # the six zero-area faces of a view
+        assert bool(whole[zero_area].all())
+        assert 0 < int((deg & whole).sum()) < int(deg.sum())  # slivers on both sides
+
+    @pytest.mark.parametrize("soft", [True, False], ids=["soft", "hard"])
+    def test_adversarial_forward_matches_pallas_interpret(self, soft):
+        """forward_plain on the adversarial scene against the Pallas
+        _run_fwd in interpret mode: the tolerances of
+        test_soft_matches_pallas_interpret / test_hard_matches_pallas_interpret
+        everywhere, and pix_to_face exactly equal wherever either side
+        shows a degenerate face. The zero-area face on a pixel-centre
+        column covers that column over its whole bin on both sides (rows
+        far outside its box): the reference's own behaviour, which the
+        cull's whole-bin rule keeps."""
+        size = IMG
+        verts, faces, degenerate = chk.adversarial_scene(size)
+        blur = rc.BLUR_RADIUS if soft else 0.0
+        out_j, _, idx_j, (layout, _) = jtpu._run_fwd(
+            jnp.asarray(verts), jnp.asarray(faces, jnp.int32), size, 192, rc.SIGMA, blur, soft,
+            True)
+        S_j, slot_j, b0_j, b1_j, z_j = (np.asarray(jtpu._untile(x, size, layout)) for x in out_j)
+        table, idx, th, tw = rc.bin_faces(_t(verts), _t(faces), size, 192, blur)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
+        fr = rc.forward_plain(table, idx, size, th, tw, rc.SIGMA, blur, soft)
+        slot_t = rc._tile(_t(slot_j), size, th, tw).long()
+        p2f_j = torch.where(slot_t >= 0, torch.gather(idx, 2, slot_t.clamp(min=0)), -1)
+        p2f_j = rc._untile(p2f_j, size, th, tw).numpy()
+        p2f_t = fr.pix_to_face.numpy()
+        agree = p2f_t == p2f_j
+        assert agree.mean() > 0.999
+        deg = np.isin(p2f_t, degenerate) | np.isin(p2f_j, degenerate)
+        assert deg.sum() > 0
+        np.testing.assert_array_equal(p2f_t[deg], p2f_j[deg])
+        np.testing.assert_allclose(np.exp(fr.S.numpy()), np.exp(S_j), atol=2e-4, rtol=0)
+        both = agree & (p2f_j >= 0)
+        np.testing.assert_allclose(fr.b0.numpy()[both], b0_j[both], atol=1e-4)
+        np.testing.assert_allclose(fr.b1.numpy()[both], b1_j[both], atol=1e-4)
+        np.testing.assert_allclose(fr.zbuf.numpy()[both], z_j[both], atol=1e-5)
+        # face 24 is the zero-area face on the pixel-centre column of view b
+        for b in range(verts.shape[0]):
+            x, y = verts[b, 72:75, 0], verts[b, 72:75, 1]
+            col = int(round(((x[0] + 1) * size - 1) / 2))
+            rows = np.arange(size)
+            far = (np.abs(((y.min() + 1) * size - 1) / 2 - rows) > 2) & \
+                (np.abs(((y.max() + 1) * size - 1) / 2 - rows) > 2)
+            assert (p2f_j[b, far, col] == 24).any()
+            np.testing.assert_array_equal(p2f_t[b, :, col], p2f_j[b, :, col])
 
 
 def test_port_imports_no_jax():
