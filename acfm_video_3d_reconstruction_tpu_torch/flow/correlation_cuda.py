@@ -49,6 +49,32 @@ def correlation_plain(f1: torch.Tensor, f2: torch.Tensor, md: int = 4) -> torch.
     return torch.stack(outs, dim=1) * (1.0 / C)
 
 
+# acfm_correlation(f1, f2, out, B, C, H, W, md, inv_c, stream)
+ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def entry():
+    """The kernel's C entry, csrc/correlation.cu built at first use."""
+    fn = load("correlation.cu").acfm_correlation
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ARGTYPES
+    return fn
+
+
+def launch(fn, f1: torch.Tensor, f2: torch.Tensor, out: torch.Tensor, md: int) -> None:
+    """One launch of a C entry `fn` (entry(), or another build's) on
+    contiguous f32 CUDA tensors, writing out (B, (2md+1)^2, H, W).
+    correlation_cuda's launch; timing code calls it with an output made
+    once."""
+    B, C, H, W = f1.shape
+    with torch.cuda.device(f1.device):
+        stream = torch.cuda.current_stream(f1.device).cuda_stream
+        err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), B, C, H, W, md, 1.0 / C, stream)
+    if err:
+        raise RuntimeError(f"correlation kernel launch failed: CUDA error {err}")
+
+
 def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, md: int = 4) -> torch.Tensor:
     """Launch csrc/correlation.cu on f32 CUDA tensors."""
     _check(f1, f2, md)
@@ -57,19 +83,10 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, md: int = 4) -> torch.T
     if f1.dtype != torch.float32 or f2.dtype != torch.float32:
         raise ValueError(f"f32 expected, got {f1.dtype} / {f2.dtype}")
     B, C, H, W = f1.shape
-    fn = load("correlation.cu").acfm_correlation
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float,
-                                                                   ctypes.c_void_p]
     f1 = f1.contiguous()
     f2 = f2.contiguous()
     out = torch.empty((B, (2 * md + 1) ** 2, H, W), dtype=torch.float32, device=f1.device)
-    with torch.cuda.device(f1.device):
-        stream = torch.cuda.current_stream(f1.device).cuda_stream
-        err = fn(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), B, C, H, W, md, 1.0 / C, stream)
-    if err:
-        raise RuntimeError(f"correlation kernel launch failed: CUDA error {err}")
+    launch(entry(), f1, f2, out, md)
     LAUNCHES[f"corr_md{md}"] += 1
     return out
 

@@ -39,7 +39,8 @@ Phases, each of which raises (exit code 1) on failure:
      random weights (flow/maskflownet.py::init_params):
      a. the cost-volume kernel against correlation_plain at the 10 distinct
         shapes of one pass at 384x768 with 12 pairs (max abs error <= 1e-5),
-        timed with its plain version and its bound;
+        timed alone and through its wrapper, with its plain version and its
+        bound;
      b. the net at 64x128, B=2, on the card against the CPU, every level's
         flow within vector relative error 1e-3;
      c. the main flow path, flow/infer.py::make_flow_fn(net, 256, (384, 768))
@@ -658,6 +659,10 @@ def phase_flow_kernels(torch, device):
     the plain version in PyTorch's reduction order, so they differ by
     summation rounding: max abs error <= 1e-5 (values ~N(0, 1/C)).
 
+    Each shape is timed twice: the kernel alone (correlation_cuda.launch on
+    inputs and an output made once), which the records and the pass total
+    keep, and the wrapper call (which also allocates its output each time;
+    the host can set the pace of a short launch), logged beside it.
     Bound per launch: the larger of 2*B*H*W*C*nd operations over
     PEAK_FP32_FLOPS and 4*(2*B*H*W*C + B*H*W*nd) bytes (f1 and f2 read once,
     the volume written once) over PEAK_BYTES_PER_S. One record per md, at
@@ -665,7 +670,7 @@ def phase_flow_kernels(torch, device):
     from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
 
     records = []
-    pass_ms = pass_bound = 0.0
+    pass_ms = pass_call_ms = pass_bound = 0.0
     for md, C, H, W, per_pass in _flow_shapes():
         g = torch.Generator(device=device).manual_seed(md * 1000 + C)
         f1, f2 = (torch.randn(FLOW_B, C, H, W, generator=g, device=device) for _ in range(2))
@@ -678,18 +683,23 @@ def phase_flow_kernels(torch, device):
         require(err <= 1e-5, f"{what}: kernel vs plain error {err} > 1e-5")
         ops = 2 * FLOW_B * H * W * C * nd
         nbytes = 4 * (2 * FLOW_B * H * W * C + FLOW_B * H * W * nd)
-        ms = time_cuda(lambda: cc.correlation_cuda(f1, f2, md), 20)
+        fn = cc.entry()
+        ms = time_cuda(lambda: cc.launch(fn, f1, f2, kern, md), 50)
+        call_ms = time_cuda(lambda: cc.correlation_cuda(f1, f2, md), 50)
         bound_ms, bound_by = _bound(ops, nbytes)
-        log(f"[flow] {what}: kernel {ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+        log(f"[flow] {what}: kernel alone {ms:.5f} ms, wrapper call {call_ms:.5f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}, {100 * bound_ms / ms:.1f}% of it alone), "
             f"{per_pass} per pass")
         pass_ms += ms * per_pass
+        pass_call_ms += call_ms * per_pass
         pass_bound += bound_ms * per_pass
         if H == FLOW_NET_HW[0] // 4:
             records.append(_record(
                 f"correlation_md{md}", "correlation.cu", CORRELATION_TPU + ":29", ms,
                 lambda: cc.correlation_plain(f1, f2, md), ops, nbytes, err, what))
-    log(f"[flow] cost volumes of one pass at {FLOW_B} pairs: kernels {pass_ms:.4f} ms, "
-        f"bound {pass_bound:.4f} ms ({100 * pass_bound / pass_ms:.1f}% of bound)")
+    log(f"[flow] cost volumes of one pass at {FLOW_B} pairs: kernels alone {pass_ms:.4f} ms "
+        f"({100 * pass_bound / pass_ms:.1f}% of bound), wrapper calls {pass_call_ms:.4f} ms "
+        f"({100 * pass_bound / pass_call_ms:.1f}%), bound {pass_bound:.4f} ms")
     return records
 
 
