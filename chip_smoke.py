@@ -121,6 +121,24 @@ def time_cuda(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_device(fn, iters: int) -> float:
+    """Mean device milliseconds per call: CUDA events around `iters` calls
+    that queue behind a ~20 ms spin of the card (torch.cuda._sleep), so
+    that the host's cost of launching them does not set their pace."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -659,10 +677,12 @@ def phase_flow_kernels(torch, device):
     the plain version in PyTorch's reduction order, so they differ by
     summation rounding: max abs error <= 1e-5 (values ~N(0, 1/C)).
 
-    Each shape is timed twice: the kernel alone (correlation_cuda.launch on
-    inputs and an output made once), which the records and the pass total
-    keep, and the wrapper call (which also allocates its output each time;
-    the host can set the pace of a short launch), logged beside it.
+    Each shape is timed three ways: the kernel alone (correlation_cuda.launch
+    on inputs and an output made once, 50 launches queued behind a spin of
+    the card: time_device), which the records and the pass total keep; the
+    same launches back to back from the host (time_cuda), which the host's
+    cost per launch can pace; and the wrapper call (which also allocates its
+    output each time).
     Bound per launch: the larger of 2*B*H*W*C*nd operations over
     PEAK_FP32_FLOPS and 4*(2*B*H*W*C + B*H*W*nd) bytes (f1 and f2 read once,
     the volume written once) over PEAK_BYTES_PER_S. One record per md, at
@@ -670,7 +690,7 @@ def phase_flow_kernels(torch, device):
     from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
 
     records = []
-    pass_ms = pass_call_ms = pass_bound = 0.0
+    pass_ms = pass_host_ms = pass_call_ms = pass_bound = 0.0
     for md, C, H, W, per_pass in _flow_shapes():
         g = torch.Generator(device=device).manual_seed(md * 1000 + C)
         f1, f2 = (torch.randn(FLOW_B, C, H, W, generator=g, device=device) for _ in range(2))
@@ -684,13 +704,16 @@ def phase_flow_kernels(torch, device):
         ops = 2 * FLOW_B * H * W * C * nd
         nbytes = 4 * (2 * FLOW_B * H * W * C + FLOW_B * H * W * nd)
         fn = cc.entry()
-        ms = time_cuda(lambda: cc.launch(fn, f1, f2, kern, md), 50)
+        ms = time_device(lambda: cc.launch(fn, f1, f2, kern, md), 50)
+        host_ms = time_cuda(lambda: cc.launch(fn, f1, f2, kern, md), 50)
         call_ms = time_cuda(lambda: cc.correlation_cuda(f1, f2, md), 50)
         bound_ms, bound_by = _bound(ops, nbytes)
-        log(f"[flow] {what}: kernel alone {ms:.5f} ms, wrapper call {call_ms:.5f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}, {100 * bound_ms / ms:.1f}% of it alone), "
-            f"{per_pass} per pass")
+        log(f"[flow] {what}: kernel alone {ms:.5f} ms ({100 * bound_ms / ms:.1f}% of bound), "
+            f"launched back to back {host_ms:.5f} ms, wrapper call {call_ms:.5f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}), {per_pass} per pass; "
+            f"{cc.launch_plan(FLOW_B, C, H, W, md)}")
         pass_ms += ms * per_pass
+        pass_host_ms += host_ms * per_pass
         pass_call_ms += call_ms * per_pass
         pass_bound += bound_ms * per_pass
         if H == FLOW_NET_HW[0] // 4:
@@ -698,7 +721,8 @@ def phase_flow_kernels(torch, device):
                 f"correlation_md{md}", "correlation.cu", CORRELATION_TPU + ":29", ms,
                 lambda: cc.correlation_plain(f1, f2, md), ops, nbytes, err, what))
     log(f"[flow] cost volumes of one pass at {FLOW_B} pairs: kernels alone {pass_ms:.4f} ms "
-        f"({100 * pass_bound / pass_ms:.1f}% of bound), wrapper calls {pass_call_ms:.4f} ms "
+        f"({100 * pass_bound / pass_ms:.1f}% of bound), launched back to back "
+        f"{pass_host_ms:.4f} ms, wrapper calls {pass_call_ms:.4f} ms "
         f"({100 * pass_bound / pass_call_ms:.1f}%), bound {pass_bound:.4f} ms")
     return records
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
+from acfm_video_3d_reconstruction_tpu_torch.flow.maskflownet import PYR_CH
 from acfm_video_3d_reconstruction_tpu_torch.geometry import camera, icosphere
 from acfm_video_3d_reconstruction_tpu_torch.ops import raster_checks as chk
 from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
@@ -20,6 +21,16 @@ from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
 torch.set_num_threads(1)
 
 IMG = 32
+
+# the cost volume's shapes: one full-width flow pass (12 pairs of a 384x768
+# input, levels 6..2, md 4 and 2), then the ragged shapes of
+# tests/test_torch_port_correlation.py
+CORR_SHAPES = [(12, PYR_CH[lvl - 1], 384 >> lvl, 768 >> lvl, md)
+               for md in (4, 2) for lvl in (6, 5, 4, 3, 2)] + [
+    (1, 32, 96, 190, 4), (2, 20, 40, 29, 2), (12, 7, 96, 33, 4), (3, 5, 3, 50, 4),
+    (1, 1, 1, 1, 4), (4, 3, 1, 17, 2), (5, 9, 13, 1, 2), (1, 1, 200, 300, 2),
+    (2, 197, 6, 12, 4), (1, 50, 7, 5, 2)]
+CORR_IDS = [f"{B}x{C}x{H}x{W}md{md}" for B, C, H, W, md in CORR_SHAPES]
 
 
 @pytest.fixture
@@ -176,19 +187,37 @@ class TestCorrelationKernel:
             cc.correlation_cuda(f, f, 4)
 
     @pytest.mark.cuda
-    @pytest.mark.parametrize("md", [4, 2])
-    @pytest.mark.parametrize("C,H,W", [(32, 96, 192), (196, 6, 12)], ids=["level2", "level6"])
-    def test_kernel_matches_plain(self, cuda_device, md, C, H, W):
-        """The kernel against correlation_plain at the full-width net's
-        level-2 and level-6 shapes (12 pairs of a 384x768 input), seeded
-        N(0, 1) features: atol 1e-5 (the same f32 products, summed over
-        the channels in another order), one launch per call."""
+    @pytest.mark.parametrize("B,C,H,W,md", CORR_SHAPES, ids=CORR_IDS)
+    def test_kernel_matches_plain(self, cuda_device, B, C, H, W, md):
+        """The kernel against correlation_plain at the 10 shapes of the
+        full-width pass (12 pairs of a 384x768 input, levels 6..2, both
+        templates) and at ragged shapes (tests/test_torch_port_correlation.py's),
+        seeded N(0, 1) features: atol 1e-5 (the same f32 products, summed
+        over the channels in another order); one launch per call, and a
+        second launch on the same inputs gives the same bits (the fixed
+        summation order)."""
         g = torch.Generator().manual_seed(md * 1000 + C)
-        f1, f2 = (torch.randn(12, C, H, W, generator=g).to(cuda_device) for _ in range(2))
+        f1, f2 = (torch.randn(B, C, H, W, generator=g).to(cuda_device) for _ in range(2))
         before = dict(cc.LAUNCHES)
         kern = cc.correlation(f1, f2, md)
         torch.cuda.synchronize()
         assert cc.LAUNCHES[f"corr_md{md}"] == before[f"corr_md{md}"] + 1
+        again = cc.correlation(f1, f2, md)
+        torch.cuda.synchronize()
+        assert torch.equal(kern, again)
         plain = cc.correlation_plain(f1, f2, md)
-        assert kern.shape == (12, (2 * md + 1) ** 2, H, W)
+        assert kern.shape == (B, (2 * md + 1) ** 2, H, W)
         torch.testing.assert_close(kern, plain, atol=1e-5, rtol=0)
+
+    @pytest.mark.cuda
+    def test_kernel_takes_unaligned_views(self, cuda_device):
+        """Contiguous inputs whose data starts 4 bytes past a 16-byte
+        boundary (views one element into a buffer) take the scalar loads:
+        still the plain version's result within 1e-5, at a tile shape."""
+        n = 12 * 32 * 48 * 96
+        flat = torch.randn(2 * n + 1, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+        f1, f2 = flat[1:n + 1].view(12, 32, 48, 96), flat[n + 1:].view(12, 32, 48, 96)
+        assert f1.is_contiguous() and f1.data_ptr() % 16 == 4
+        assert cc.launch_plan(12, 32, 48, 96, 4).template == "tile"
+        kern = cc.correlation(f1, f2, 4)
+        torch.testing.assert_close(kern, cc.correlation_plain(f1, f2, 4), atol=1e-5, rtol=0)
