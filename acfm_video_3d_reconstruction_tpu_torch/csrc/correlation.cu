@@ -60,7 +60,9 @@
 // dropped (this design's time in brackets): 16 channels a chunk, level 2
 // md 4 0.145 (0.086); TY = 8, 0.099 (0.086), level 3 0.100 (0.054); no
 // register prefetch 0.086 (0.081), level 3 0.046 (0.041); the tile kernel
-// without a register cap 0.102 (0.081); the split kernel at up to 98
+// without a register cap 0.102 (0.081); its staging indices recomputed per
+// chunk instead of kept, 0.101 (0.081); two shared buffers and one barrier
+// a chunk, 0.100 (0.081) (both spill more); the split kernel at up to 98
 // registers, level 4 md 4 0.029 (0.022), level 5 0.014 (0.010); split
 // chunks of about 24 channels with DY up to 3, level 4 md 4 0.032 (0.029);
 // of about 8, level 4 md 4 0.026 (0.022). PERF.md has every shape.

@@ -39,8 +39,8 @@ Phases, each of which raises (exit code 1) on failure:
      random weights (flow/maskflownet.py::init_params):
      a. the cost-volume kernel against correlation_plain at the 10 distinct
         shapes of one pass at 384x768 with 12 pairs (max abs error <= 1e-5),
-        timed alone and through its wrapper, with its plain version and its
-        bound;
+        timed alone (device time), back to back and through its wrapper,
+        with its launch plan, its plain version and its bound;
      b. the net at 64x128, B=2, on the card against the CPU, every level's
         flow within vector relative error 1e-3;
      c. the main flow path, flow/infer.py::make_flow_fn(net, 256, (384, 768))

@@ -9,15 +9,14 @@ imports the flow/correlation_cuda.py of the checkout at DIR under another
 package name (its csrc/correlation.cu is built into DIR's own _build/
 directory, which is the only thing written there), and times the two
 kernels alone in turns (other, this, this, other; CUDA events over --iters
-launches after two), twice: queued behind a ~20 ms spin of the card, so
-that the host's cost per launch does not pace them (device time, as
-chip_smoke.py's time_device), and back to back from the host. Each side
+launches), twice: queued behind a ~20 ms spin of the card, so that the
+host's cost per launch does not pace them (device time, chip_smoke.py's
+time_device), and back to back from the host (time_cuda). Each side
 launches through its own module's `launch(entry(), f1, f2, out, md)` on the
 same inputs and an output made once. Prints per shape the times, the
 outputs' largest difference and each side's pass total (one md=4 and two
-md=2 launches per level). To time
-a variant of the kernel or of its launch plan, give a copy of the checkout
-whose source holds it.
+md=2 launches per level). To time a variant of the kernel or of its launch
+plan, give a copy of the checkout whose source holds it.
 
 The last lines are the card's name and power limit, then one JSON object
 with every time. Exits non-zero, printing no result, when no CUDA device is
@@ -35,25 +34,9 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from chip_smoke import time_cuda, time_device  # noqa: E402
+
 PKG = "acfm_video_3d_reconstruction_tpu_torch"
-
-
-def _timed(torch, fn, iters, queued):
-    """Mean ms per call over `iters` calls after two (CUDA events); with
-    `queued`, the calls wait behind a ~20 ms spin of the card, so that the
-    host's cost per launch does not pace them (chip_smoke.time_device)."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    if queued:
-        torch.cuda._sleep(40_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def _import_other(root: Path):
@@ -110,7 +93,8 @@ def main(argv=None) -> int:
                 how = "queued" if queued else "back to back"
                 t = {"other": [], "this": []}
                 for who in ("other", "this", "this", "other"):
-                    t[who].append(_timed(torch, lambda: call(who), args.iters, queued))
+                    timer = time_device if queued else time_cuda
+                    t[who].append(timer(lambda: call(who), args.iters))
                 for who in sides:
                     result[f"{who}_ms"].setdefault(how, {})[key] = t[who]
                     totals[how][who] += per_pass * min(t[who])
