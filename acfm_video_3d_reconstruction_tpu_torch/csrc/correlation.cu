@@ -25,7 +25,9 @@
 // and its numbers (flow/correlation_cuda.py::launch_plan, checked again by
 // acfm_correlation below), each instantiated for md 4 and 2:
 //
-// corr_tile_kernel (fine levels, where its grid fills the card). A block
+// corr_tile_kernel (fine levels, where its grid holds at least 1.5 blocks
+// per SM: at 224 blocks and more it beat the split kernel, at 144 and fewer
+// it lost, at every shape of the flow paths' passes). A block
 // owns TY = 4 output rows of a 32-pixel strip and every dy. It stages the
 // channels CC = 8 at a time in shared memory: f1's TY rows of the strip and
 // f2's TY + 2md rows around them, widened by 4 pixels on each side, zero
@@ -53,10 +55,12 @@
 // it; loads and stores are float4 where W % 4 == 0 and the pointers are
 // 16-byte aligned, scalar otherwise.
 //
-// Measured (tools/torch_correlation_compare.py, NVIDIA H100 80GB HBM3 at
+// Measured (tools/torch_kernel_compare.py, NVIDIA H100 80GB HBM3 at
 // 700 W, 12 pairs of a 384x768 input; ms per launch, device time): level 2
 // md 4 / md 2 0.081 / 0.044 (the first design 0.246 / 0.118), one pass of
-// 15 launches 0.353 ms (1.13). Variants timed in turns with this design and
+// 15 launches 0.353 ms (1.13). At one pair of 448x1024, level 2 md 4 / md 2
+// 0.0125 / 0.0084 tiled, 0.0192 / 0.0097 split (the first design 0.0356 /
+// 0.0191). Variants timed in turns with this design and
 // dropped (this design's time in brackets): 16 channels a chunk, level 2
 // md 4 0.145 (0.086); TY = 8, 0.099 (0.086), level 3 0.100 (0.054); no
 // register prefetch 0.086 (0.081), level 3 0.046 (0.041); the tile kernel

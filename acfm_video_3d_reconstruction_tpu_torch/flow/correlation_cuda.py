@@ -44,7 +44,7 @@ TEMPLATES = ("tile", "split")
 P, TILE_GX, TILE_TY, TILE_CC = 4, 8, 4, 8
 SPLIT_GROUPS, SPLIT_MAX_THREADS = 32, 512
 # The H100's streaming multiprocessors: the tile kernel runs where its grid
-# holds at least two blocks for each.
+# holds at least 1.5 blocks for each.
 NUM_SMS = 132
 
 
@@ -69,9 +69,15 @@ def launch_plan(B: int, C: int, H: int, W: int, md: int) -> Plan:
     for one dy. Grid (ceil(W/32), ceil(H/4), B), 8 (2md+1) 4 threads,
     channels staged TILE_CC = 8 at a time (f1's 4 rows and f2's 4 + 2md
     rows, 40 wide, as float4s). It runs where that grid holds at least
-    2 NUM_SMS blocks (levels 3 and 2 of the full-width pass).
-    split, everywhere else (levels 6-4): a block owns 32 four-pixel groups
-    of the flattened (b, y, x/4) range and DY displacement rows; its CS
+    1.5 NUM_SMS = 198 blocks: levels 3 and 2 of the trainer's pass (12
+    pairs, net at 384x768; 432 and 1728 blocks), level 2 of the flow CLI's
+    at one pair (224 blocks at 448x1024, 240 at 384x1280). Both templates
+    timed at all three passes on an H100: the tile kernel is the faster at
+    224 blocks and more, the split one at 144 (the trainer's level 4) and
+    fewer (PERF.md).
+    split, everywhere else (levels 6-4; 6-3 at one pair): a block owns 32
+    four-pixel groups of the flattened (b, y, x/4) range and DY
+    displacement rows; its CS
     channel groups of `chunk` channels each (about 12, at most 16 groups,
     none empty) sum their slices, then meet in shared memory (one float4
     per group, row and thread). DY is the largest divisor of 2md+1 that
@@ -79,7 +85,7 @@ def launch_plan(B: int, C: int, H: int, W: int, md: int) -> Plan:
     """
     side = 2 * md + 1
     grid = (math.ceil(W / (P * TILE_GX)), math.ceil(H / TILE_TY), B)
-    if grid[0] * grid[1] * grid[2] >= 2 * NUM_SMS:
+    if grid[0] * grid[1] * grid[2] >= 3 * NUM_SMS // 2:
         staged = TILE_CC * ((TILE_TY + 2 * md) * (P * TILE_GX + 8) + TILE_TY * P * TILE_GX)
         return Plan("tile", P, TILE_TY, side, 1, TILE_CC, grid, TILE_GX * side * TILE_TY,
                     4 * staged)

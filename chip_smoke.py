@@ -38,9 +38,10 @@ Phases, each of which raises (exit code 1) on failure:
   5. flow, the frozen two-stage MaskFlownet in f32 at full width, seeded
      random weights (flow/maskflownet.py::init_params):
      a. the cost-volume kernel against correlation_plain at the 10 distinct
-        shapes of one pass at 384x768 with 12 pairs (max abs error <= 1e-5),
-        timed alone (device time), back to back and through its wrapper,
-        with its launch plan, its plain version and its bound;
+        shapes of each pass that c and d run (384x768 with 12 pairs;
+        448x1024 with one) (max abs error <= 1e-5), timed alone (device
+        time), back to back and through its wrapper, with its launch plan,
+        its plain version and its bound;
      b. the net at 64x128, B=2, on the card against the CPU, every level's
         flow within vector relative error 1e-3;
      c. the main flow path, flow/infer.py::make_flow_fn(net, 256, (384, 768))
@@ -52,7 +53,8 @@ Phases, each of which raises (exit code 1) on failure:
         kernel path's own run-to-run floor), and the convolutions'
         operations per call with their rate over the windows;
      d. the flow CLI's path, predict_flow_native on one 436x1024 pair
-        (stretched to 448x1024): finite, 15 launches.
+        (stretched to 448x1024): finite, 15 launches, and within relative
+        error 1e-4 of the same call through correlation_plain.
 The launch counters of every kernel are zeroed just before each main path
 and read just after it.
 The second-to-last lines are the card's name and power limit, then one
@@ -72,6 +74,8 @@ import sys
 import time
 
 import numpy as np
+
+from acfm_video_3d_reconstruction_tpu_torch.ops.timing import time_cuda, time_device
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores and HBM3 bandwidth.
@@ -100,43 +104,12 @@ TRAIN_STEPS, TRAIN_WINDOWS = 20, 3
 FLOW_B, FLOW_NET_HW = 12, (384, 768)
 FLOW_CALLS, FLOW_WINDOWS = 3, 3
 NATIVE_HW = (436, 1024)  # a Sintel frame
+# predict_flow_native stretches a frame to the next multiple of 64
+NATIVE_NET_HW = tuple(-(-n // 64) * 64 for n in NATIVE_HW)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def time_cuda(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call, CUDA events around `iters` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def time_device(fn, iters: int) -> float:
-    """Mean device milliseconds per call: CUDA events around `iters` calls
-    that queue behind a ~20 ms spin of the card (torch.cuda._sleep), so
-    that the host's cost of launching them does not set their pace."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(40_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def require(cond: bool, what: str) -> None:
@@ -659,71 +632,76 @@ def phase_train(torch, mods, batch, profile):
     return fps, spread, launches
 
 
-def _flow_shapes():
-    """The cost volume's distinct (md, C, H, W) at FLOW_NET_HW, finest last
-    per md, with its launches per two-stage pass: stage 1 one per level at
-    md=4, stage 2 two per level (corru, corrv) at md=2."""
+def _flow_shapes(net_hw):
+    """The cost volume's distinct (md, C, H, W) of one pass of the net at
+    net_hw, finest last per md, with its launches per two-stage pass:
+    stage 1 one per level at md=4, stage 2 two per level (corru, corrv) at
+    md=2."""
     from acfm_video_3d_reconstruction_tpu_torch.flow.maskflownet import PYR_CH
 
-    nh, nw = FLOW_NET_HW
+    nh, nw = net_hw
     return [(md, PYR_CH[lvl - 1], nh >> lvl, nw >> lvl, per_pass)
             for md, per_pass in ((4, 1), (2, 2)) for lvl in (6, 5, 4, 3, 2)]
 
 
 def phase_flow_kernels(torch, device):
     """The cost-volume kernel against correlation_plain (run on the card) at
-    every shape of the full-width pass, on seeded N(0, 1) features. Both
-    compute the same f32 products; the kernel sums the channels in order,
-    the plain version in PyTorch's reduction order, so they differ by
-    summation rounding: max abs error <= 1e-5 (values ~N(0, 1/C)).
+    every shape of the two passes that the flow paths run: make_flow_fn's
+    (FLOW_B pairs, net at FLOW_NET_HW) and predict_flow_native's (one pair,
+    net at NATIVE_NET_HW), on seeded N(0, 1) features. Both compute the
+    same f32 products; the kernel sums the channels in order, the plain
+    version in PyTorch's reduction order, so they differ by summation
+    rounding: max abs error <= 1e-5 (values ~N(0, 1/C)).
 
     Each shape is timed three ways: the kernel alone (correlation_cuda.launch
     on inputs and an output made once, 50 launches queued behind a spin of
-    the card: time_device), which the records and the pass total keep; the
+    the card: time_device), which the records and the pass totals keep; the
     same launches back to back from the host (time_cuda), which the host's
     cost per launch can pace; and the wrapper call (which also allocates its
     output each time).
     Bound per launch: the larger of 2*B*H*W*C*nd operations over
     PEAK_FP32_FLOPS and 4*(2*B*H*W*C + B*H*W*nd) bytes (f1 and f2 read once,
     the volume written once) over PEAK_BYTES_PER_S. One record per md, at
-    its finest level (level 2, the largest)."""
+    make_flow_fn's finest level (level 2, the largest)."""
     from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
 
     records = []
-    pass_ms = pass_host_ms = pass_call_ms = pass_bound = 0.0
-    for md, C, H, W, per_pass in _flow_shapes():
-        g = torch.Generator(device=device).manual_seed(md * 1000 + C)
-        f1, f2 = (torch.randn(FLOW_B, C, H, W, generator=g, device=device) for _ in range(2))
-        kern = cc.correlation_cuda(f1, f2, md)
-        torch.cuda.synchronize()
-        err = (kern - cc.correlation_plain(f1, f2, md)).abs().max().item()
-        nd = (2 * md + 1) ** 2
-        what = f"correlation md={md} {FLOW_B}x{C}x{H}x{W}"
-        log(f"[flow] {what}: kernel vs plain max abs err {err:.3g}")
-        require(err <= 1e-5, f"{what}: kernel vs plain error {err} > 1e-5")
-        ops = 2 * FLOW_B * H * W * C * nd
-        nbytes = 4 * (2 * FLOW_B * H * W * C + FLOW_B * H * W * nd)
-        fn = cc.entry()
-        ms = time_device(lambda: cc.launch(fn, f1, f2, kern, md), 50)
-        host_ms = time_cuda(lambda: cc.launch(fn, f1, f2, kern, md), 50)
-        call_ms = time_cuda(lambda: cc.correlation_cuda(f1, f2, md), 50)
-        bound_ms, bound_by = _bound(ops, nbytes)
-        log(f"[flow] {what}: kernel alone {ms:.5f} ms ({100 * bound_ms / ms:.1f}% of bound), "
-            f"launched back to back {host_ms:.5f} ms, wrapper call {call_ms:.5f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by}), {per_pass} per pass; "
-            f"{cc.launch_plan(FLOW_B, C, H, W, md)}")
-        pass_ms += ms * per_pass
-        pass_host_ms += host_ms * per_pass
-        pass_call_ms += call_ms * per_pass
-        pass_bound += bound_ms * per_pass
-        if H == FLOW_NET_HW[0] // 4:
-            records.append(_record(
-                f"correlation_md{md}", "correlation.cu", CORRELATION_TPU + ":29", ms,
-                lambda: cc.correlation_plain(f1, f2, md), ops, nbytes, err, what))
-    log(f"[flow] cost volumes of one pass at {FLOW_B} pairs: kernels alone {pass_ms:.4f} ms "
-        f"({100 * pass_bound / pass_ms:.1f}% of bound), launched back to back "
-        f"{pass_host_ms:.4f} ms, wrapper calls {pass_call_ms:.4f} ms "
-        f"({100 * pass_bound / pass_call_ms:.1f}%), bound {pass_bound:.4f} ms")
+    fn = cc.entry()
+    for path, nb, net_hw in (("make_flow_fn", FLOW_B, FLOW_NET_HW),
+                             ("predict_flow_native", 1, NATIVE_NET_HW)):
+        pass_ms = pass_host_ms = pass_call_ms = pass_bound = 0.0
+        for md, C, H, W, per_pass in _flow_shapes(net_hw):
+            g = torch.Generator(device=device).manual_seed(md * 1000 + C)
+            f1, f2 = (torch.randn(nb, C, H, W, generator=g, device=device) for _ in range(2))
+            kern = cc.correlation_cuda(f1, f2, md)
+            torch.cuda.synchronize()
+            err = (kern - cc.correlation_plain(f1, f2, md)).abs().max().item()
+            nd = (2 * md + 1) ** 2
+            what = f"correlation md={md} {nb}x{C}x{H}x{W}"
+            log(f"[flow] {what}: kernel vs plain max abs err {err:.3g}")
+            require(err <= 1e-5, f"{what}: kernel vs plain error {err} > 1e-5")
+            ops = 2 * nb * H * W * C * nd
+            nbytes = 4 * (2 * nb * H * W * C + nb * H * W * nd)
+            ms = time_device(lambda: cc.launch(fn, f1, f2, kern, md), 50)
+            host_ms = time_cuda(lambda: cc.launch(fn, f1, f2, kern, md), 50)
+            call_ms = time_cuda(lambda: cc.correlation_cuda(f1, f2, md), 50)
+            bound_ms, bound_by = _bound(ops, nbytes)
+            log(f"[flow] {what}: kernel alone {ms:.5f} ms ({100 * bound_ms / ms:.1f}% of "
+                f"bound), launched back to back {host_ms:.5f} ms, wrapper call {call_ms:.5f} "
+                f"ms, bound {bound_ms:.5f} ms ({bound_by}), {per_pass} per pass; "
+                f"{cc.launch_plan(nb, C, H, W, md)}")
+            pass_ms += ms * per_pass
+            pass_host_ms += host_ms * per_pass
+            pass_call_ms += call_ms * per_pass
+            pass_bound += bound_ms * per_pass
+            if path == "make_flow_fn" and H == net_hw[0] // 4:
+                records.append(_record(
+                    f"correlation_md{md}", "correlation.cu", CORRELATION_TPU + ":29", ms,
+                    lambda: cc.correlation_plain(f1, f2, md), ops, nbytes, err, what))
+        log(f"[flow] cost volumes of one {path} pass ({nb} pairs, net {net_hw}): kernels "
+            f"alone {pass_ms:.4f} ms ({100 * pass_bound / pass_ms:.1f}% of bound), launched "
+            f"back to back {pass_host_ms:.4f} ms, wrapper calls {pass_call_ms:.4f} ms "
+            f"({100 * pass_bound / pass_call_ms:.1f}%), bound {pass_bound:.4f} ms")
     return records
 
 
@@ -844,6 +822,11 @@ def phase_flow(torch, device, profile):
             f"native launches {native_launches} != 5 md=4 and 10 md=2")
     require(tuple(native.shape) == (1,) + NATIVE_HW + (2,), f"native shape {native.shape}")
     require(bool(torch.isfinite(native).all()), "native flow: not finite")
+    with plain_correlation():
+        native_plain = infer.predict_flow_native(net, pair[0], pair[1])
+    rel = _rel(torch, native, native_plain)
+    log(f"[flow] predict_flow_native kernel path vs correlation_plain: rel err {rel:.3g}")
+    require(rel <= 1e-4, f"native flow kernel vs plain: rel error {rel} > 1e-4")
     return rate, spread, launches
 
 

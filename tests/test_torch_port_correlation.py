@@ -6,8 +6,10 @@ runs only on the card; here the plan is held to what the kernel's index
 map (csrc/correlation.cu's note, modelled below in numpy) needs: the grid
 and the threads' tiles cover every output (b, d, y, x) exactly once, a
 block has at most 1024 threads and 232,448 bytes of shared memory, and the
-channel chunks or groups partition [0, C). At the 10 shapes of one
-full-width flow pass and at ragged shapes.
+channel chunks or groups partition [0, C). At the 10 shapes of each pass
+of the flow net that the port runs, and at ragged shapes. The card's
+kernel tests (tests/test_torch_port_kernels.py) take their shapes from
+here.
 """
 import math
 
@@ -17,9 +19,20 @@ import pytest
 from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
 from acfm_video_3d_reconstruction_tpu_torch.flow.maskflownet import PYR_CH
 
-# the full-width pass: 12 pairs of a 384x768 input, levels 6..2, md 4 and 2
-FLOW_SHAPES = [(12, PYR_CH[lvl - 1], 384 >> lvl, 768 >> lvl, md)
-               for md in (4, 2) for lvl in (6, 5, 4, 3, 2)]
+
+
+def _pass_shapes(B, nh, nw):
+    """(B, C, H, W, md) of the net's cost volumes at an nh x nw input,
+    levels 6..2, md 4 and 2."""
+    return [(B, PYR_CH[lvl - 1], nh >> lvl, nw >> lvl, md)
+            for md in (4, 2) for lvl in (6, 5, 4, 3, 2)]
+
+
+# the multiframe trainer's pass (12 pairs, net at 384x768) and the flow
+# CLI's on one Sintel frame (436x1024 -> 448x1024) and one KITTI frame
+# (375x1242 -> 384x1280)
+FLOW_SHAPES = _pass_shapes(12, 384, 768)
+NATIVE_SHAPES = _pass_shapes(1, 448, 1024) + _pass_shapes(1, 384, 1280)
 RAGGED_SHAPES = [
     (1, 32, 96, 190, 4),   # W not a multiple of the pixels a thread
     (2, 20, 40, 29, 2),    # W under the strip, C not a multiple of the chunk
@@ -32,6 +45,8 @@ RAGGED_SHAPES = [
     (2, 197, 6, 12, 4),    # C one past a multiple of the groups
     (1, 50, 7, 5, 2),      # B = 1, C not a multiple of the groups
 ]
+CORR_SHAPES = FLOW_SHAPES + NATIVE_SHAPES + RAGGED_SHAPES
+CORR_IDS = [f"{B}x{C}x{H}x{W}md{md}" for B, C, H, W, md in CORR_SHAPES]
 
 
 def _tile_cover(plan, B, H, W, md):
@@ -80,9 +95,7 @@ def _split_cover(plan, B, H, W, md):
     return count.reshape(B, H, W, side * side).transpose(0, 3, 1, 2)
 
 
-@pytest.mark.parametrize("B,C,H,W,md", FLOW_SHAPES + RAGGED_SHAPES,
-                         ids=[f"{B}x{C}x{H}x{W}md{md}" for B, C, H, W, md in
-                              FLOW_SHAPES + RAGGED_SHAPES])
+@pytest.mark.parametrize("B,C,H,W,md", CORR_SHAPES, ids=CORR_IDS)
 def test_launch_plan_covers_every_output_once(B, C, H, W, md):
     plan = cc.launch_plan(B, C, H, W, md)
     side = 2 * md + 1
@@ -110,9 +123,11 @@ def test_launch_plan_covers_every_output_once(B, C, H, W, md):
 
 
 def test_launch_plan_tiles_fine_levels_and_splits_coarse_ones():
-    """The tile kernel where its strip grid holds two blocks per SM, the
-    channel split below: levels 3 and 2 tile, levels 6-4 split, for both
-    radii."""
-    for B, C, H, W, md in FLOW_SHAPES:
+    """The tile kernel where its strip grid holds 1.5 blocks per SM, the
+    channel split below, for both radii: at 12 pairs levels 3 and 2 tile
+    (432 and 1728 blocks) and levels 6-4 split (level 4: 144 blocks); at
+    one pair level 2 tiles (224 or 240 blocks) and levels 6-3 split."""
+    for B, C, H, W, md in FLOW_SHAPES + NATIVE_SHAPES:
         plan = cc.launch_plan(B, C, H, W, md)
-        assert plan.template == ("tile" if H >= 48 else "split"), (C, H, W, md)
+        fine = H >= (48 if B == 12 else 96)
+        assert plan.template == ("tile" if fine else "split"), (B, C, H, W, md)

@@ -13,24 +13,14 @@ import pytest
 import torch
 
 from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
-from acfm_video_3d_reconstruction_tpu_torch.flow.maskflownet import PYR_CH
 from acfm_video_3d_reconstruction_tpu_torch.geometry import camera, icosphere
 from acfm_video_3d_reconstruction_tpu_torch.ops import raster_checks as chk
 from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
+from test_torch_port_correlation import CORR_IDS, CORR_SHAPES
 
 torch.set_num_threads(1)
 
 IMG = 32
-
-# the cost volume's shapes: one full-width flow pass (12 pairs of a 384x768
-# input, levels 6..2, md 4 and 2), then the ragged shapes of
-# tests/test_torch_port_correlation.py
-CORR_SHAPES = [(12, PYR_CH[lvl - 1], 384 >> lvl, 768 >> lvl, md)
-               for md in (4, 2) for lvl in (6, 5, 4, 3, 2)] + [
-    (1, 32, 96, 190, 4), (2, 20, 40, 29, 2), (12, 7, 96, 33, 4), (3, 5, 3, 50, 4),
-    (1, 1, 1, 1, 4), (4, 3, 1, 17, 2), (5, 9, 13, 1, 2), (1, 1, 200, 300, 2),
-    (2, 197, 6, 12, 4), (1, 50, 7, 5, 2)]
-CORR_IDS = [f"{B}x{C}x{H}x{W}md{md}" for B, C, H, W, md in CORR_SHAPES]
 
 
 @pytest.fixture
@@ -189,9 +179,9 @@ class TestCorrelationKernel:
     @pytest.mark.cuda
     @pytest.mark.parametrize("B,C,H,W,md", CORR_SHAPES, ids=CORR_IDS)
     def test_kernel_matches_plain(self, cuda_device, B, C, H, W, md):
-        """The kernel against correlation_plain at the 10 shapes of the
-        full-width pass (12 pairs of a 384x768 input, levels 6..2, both
-        templates) and at ragged shapes (tests/test_torch_port_correlation.py's),
+        """The kernel against correlation_plain at the shapes of
+        tests/test_torch_port_correlation.py (the trainer's pass, the flow
+        CLI's at one pair, both templates, and ragged shapes),
         seeded N(0, 1) features: atol 1e-5 (the same f32 products, summed
         over the channels in another order); one launch per call, and a
         second launch on the same inputs gives the same bits (the fixed
