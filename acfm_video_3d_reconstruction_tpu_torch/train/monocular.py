@@ -201,20 +201,27 @@ def forward(mods: MonoModules, batch: dict, train: bool = False):
     return total, aux
 
 
-def make_train_step(mods: MonoModules):
+def build_optimizer(mods: MonoModules) -> torch.optim.Adam:
+    """torch.optim.Adam over every MeshNet parameter (mean_v, lbs_logits and
+    vert2kp_logits too, as JAX differentiates all of `params`) with
+    cfg.train.learning_rate, betas (cfg.train.beta1, 0.999) and eps 1e-8:
+    optax.adam with eps_root 0. LPIPS is frozen."""
+    tc = mods.cfg.train
+    return torch.optim.Adam(mods.model.parameters(), lr=tc.learning_rate,
+                            betas=(tc.beta1, 0.999), eps=1e-8)
+
+
+def make_train_step(mods: MonoModules, opt: Optional[torch.optim.Optimizer] = None):
     """train_step(batch) -> metrics, the JAX make_train_step's step.
 
-    One forward in train mode, backward, and one torch.optim.Adam step over
-    every MeshNet parameter (mean_v, lbs_logits and vert2kp_logits too, as
-    JAX differentiates all of `params`) with cfg.train.learning_rate, betas
-    (cfg.train.beta1, 0.999) and eps 1e-8: optax.adam with eps_root 0. LPIPS
-    is frozen. Where JAX returns a new TrainState, this updates the modules'
-    parameters, BatchNorm statistics and the optimizer state in place. The
-    metrics are those of the forward before the update, detached.
+    One forward in train mode, backward, and one step of `opt`
+    (build_optimizer(mods) when None). Where JAX returns a new TrainState,
+    this updates the modules' parameters, BatchNorm statistics and the
+    optimizer state in place; the optimizer is `train_step.opt`, so that
+    train/checkpoints.py can save and restore its moments and step count.
+    The metrics are those of the forward before the update, detached.
     """
-    tc = mods.cfg.train
-    opt = torch.optim.Adam(mods.model.parameters(), lr=tc.learning_rate,
-                           betas=(tc.beta1, 0.999), eps=1e-8)
+    opt = build_optimizer(mods) if opt is None else opt
 
     def train_step(batch: dict) -> dict:
         opt.zero_grad(set_to_none=True)
@@ -223,6 +230,7 @@ def make_train_step(mods: MonoModules):
         opt.step()
         return {k: v.detach() for k, v in aux["metrics"].items()}
 
+    train_step.opt = opt
     return train_step
 
 

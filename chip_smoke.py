@@ -35,6 +35,17 @@ Phases, each of which raises (exit code 1) on failure:
      them. The outputs must be finite, training must lower total_loss, and
      each path must agree with the same step through the plain rasterizer
      (the train step's gradients with the nets in f32).
+  4b. driver: the monocular CLIs' train and evaluate on a CUB-format tree
+     (tools/cub_fixture.py, 96 train and 24 test images of 300-400 px) at
+     the CLI's defaults (the full-width bird model, f32), through the CUB
+     dataset, the loader with native edt / boundaries (native/build.sh runs
+     first), prefetch, the driver loop, the logger and the checkpoints: 8
+     train steps with exactly 8 soft, 8 hard and 8 soft_bwd launches, finite
+     metrics.jsonl records, the checkpoint files; 2 eval batches with
+     exactly 2 soft and 2 hard launches and the reference-format line; the
+     latest checkpoint restored into a fresh build gives the same eval step.
+     Logs the driver's frames/s over steps 2-8, the loader's batches/s alone
+     and the seconds of one checkpoint save.
   5. flow, the frozen two-stage MaskFlownet in f32 at full width, seeded
      random weights (flow/maskflownet.py::init_params):
      a. the cost-volume kernel against correlation_plain at the 10 distinct
@@ -106,6 +117,10 @@ FLOW_CALLS, FLOW_WINDOWS = 3, 3
 NATIVE_HW = (436, 1024)  # a Sintel frame
 # predict_flow_native stretches a frame to the next multiple of 64
 NATIVE_NET_HW = tuple(-(-n // 64) * 64 for n in NATIVE_HW)
+# the driver phase's CUB tree: one epoch of 8 steps at batch 12, 2 eval
+# batches, raw images large enough that crop and resize really run
+DRIVER_TRAIN, DRIVER_TEST, DRIVER_RAW = 96, 24, (300, 400)
+LOADER_EPOCHS = 3
 
 
 def log(msg: str) -> None:
@@ -632,6 +647,163 @@ def phase_train(torch, mods, batch, profile):
     return fps, spread, launches
 
 
+def _check_metrics_jsonl(path, n):
+    with open(path) as fh:
+        recs = [json.loads(line) for line in fh if line.strip()]
+    require(len(recs) == n, f"driver: {len(recs)} metrics.jsonl records, expected {n}")
+    for r in recs:
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        require(not bad, f"driver: non-finite {bad} at step {r['step']}")
+    return recs
+
+
+def phase_driver(torch, device, card):
+    """The monocular trainer and evaluator as users run them: the CLIs'
+    `train` and `evaluate` on a CUB-format tree (tools/cub_fixture.py) at
+    the CLI's defaults, the full-width bird model (batch 12, 256², subdivide
+    3, 15 handles, 15 keypoints, nz_feat 200, tex 6, texture on, symmetric,
+    f32 nets, SfM mean-shape keypoints from the tree), through the CUB
+    dataset, the loader (native edt / boundaries, built here), prefetch, the
+    driver loop, the logger and the checkpoints.
+
+    Train one epoch of DRIVER_TRAIN images (8 steps): exactly 8 soft, 8 hard
+    and 8 soft_bwd launches and no cost volume; every metrics.jsonl record
+    finite; opts.log, pred_net_latest.pth and pred_net_1.pth written.
+    Evaluate the test split from pred_net_latest.pth: 2 batches, exactly 2
+    soft and 2 hard launches, the reference-format line. Restore latest
+    into a fresh build: the same state, and its eval step bit-identical to
+    the trained modules' (or within the trained modules' own run-to-run
+    difference). Logs the driver loop's frames/s over steps 2-8 (from
+    metrics.jsonl's time_per_iter: host clock, each step ending where the
+    logger reads its metrics off the card), the loader's batches/s alone and
+    the seconds of one checkpoint save. The 8 steps start with up to ~5
+    batches queued (the loader's and prefetch's queues fill while the model
+    builds), so the loader's own rate is also timed alone, over
+    LOADER_EPOCHS epochs in one stream."""
+    import io
+    import os
+    import re
+    import tempfile
+
+    from tools.cub_fixture import write_cub_tree
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    build = subprocess.run(["sh", os.path.join(here, "native", "build.sh")],
+                           capture_output=True, text=True, timeout=300)
+    from acfm_video_3d_reconstruction_tpu_torch.cli import monocular_evaluate, monocular_main
+    from acfm_video_3d_reconstruction_tpu_torch.data import native
+    from acfm_video_3d_reconstruction_tpu_torch.data.base import ConcatDataset
+    from acfm_video_3d_reconstruction_tpu_torch.data.cub import CUBDataset
+    from acfm_video_3d_reconstruction_tpu_torch.data.loader import DataLoader
+    from acfm_video_3d_reconstruction_tpu_torch.train import checkpoints, monocular
+
+    log(f"[driver] native/build.sh exit {build.returncode}: {build.stdout.strip()} "
+        f"{build.stderr.strip()[-300:]}; edt / boundaries path: "
+        f"{'native' if native.available() else 'numpy fallback'}")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root, ckdir = os.path.join(tmp, "cub"), os.path.join(tmp, "snapshots")
+        t0 = time.perf_counter()
+        write_cub_tree(root, DRIVER_TRAIN, DRIVER_TEST, DRIVER_RAW, seed=0)
+        log(f"[driver] CUB tree: {DRIVER_TRAIN} train + {DRIVER_TEST} test images of "
+            f"{DRIVER_RAW[0]}-{DRIVER_RAW[1]} px written in {time.perf_counter() - t0:.2f} s")
+        common = ["--cub_dir", root, "--cub_cache_dir", root, "--checkpoint_dir", ckdir,
+                  "--name", "smoke", "--device", str(device)]
+        args = monocular_main.parse(common + ["--num_epochs", "1", "--save_epoch_freq", "1",
+                                              "--log_every", "1"])
+        cfg = monocular_main.build_cfg(args)
+        t0 = time.perf_counter()
+        template = monocular_main.build_cub_template(cfg, args)
+        dataset = CUBDataset(root, root, split=args.split, img_size=args.img_size)
+        log(f"[driver] template ({template.num_verts} verts, {template.num_faces} faces) and "
+            f"dataset built in {time.perf_counter() - t0:.2f} s")
+
+        # the loader alone, one stream of LOADER_EPOCHS epochs: its rate after
+        # the first batch is what a long epoch would get from it
+        t0 = time.perf_counter()
+        arrivals = [time.perf_counter() for _ in DataLoader(
+            ConcatDataset([dataset] * LOADER_EPOCHS), args.batch_size, shuffle=True, seed=1)]
+        loader_bps = (len(arrivals) - 1) / (arrivals[-1] - arrivals[0])
+        log(f"[driver] loader alone (CUB crop/resize/mirror + edt/boundaries, B="
+            f"{args.batch_size} {args.img_size}^2): {len(arrivals)} batches, the first after "
+            f"{arrivals[0] - t0:.4f} s, then {loader_bps:.3f} batches/s "
+            f"({loader_bps * args.batch_size:.2f} frames/s)")
+
+        zero_launches()
+        t0 = time.perf_counter()
+        mods, opt = monocular_main.train(cfg, template, dataset, args)
+        train_launches = read_launches()
+        t_train = time.perf_counter() - t0
+        n_steps = DRIVER_TRAIN // args.batch_size
+        require(train_launches == only(soft=n_steps, hard=n_steps, soft_bwd=n_steps),
+                f"driver train launches {train_launches} != one soft, hard and soft_bwd per "
+                f"step ({n_steps} steps)")
+        save_dir = os.path.join(ckdir, "smoke")
+        recs = _check_metrics_jsonl(os.path.join(save_dir, "metrics.jsonl"), n_steps)
+        for f in ("opts.log", "pred_net_latest.pth", "pred_net_1.pth"):
+            require(os.path.exists(os.path.join(save_dir, f)), f"driver: {f} not written")
+        # --log_every 1: each record's time_per_iter is the host time since
+        # the last record, ending where the logger reads the step's metrics
+        # off the card (after the step's update in stream order)
+        step_s = [r["time_per_iter"] for r in recs[1:]]
+        fps = len(step_s) * args.batch_size / sum(step_s)
+        t_save = time.perf_counter()
+        checkpoints.save(ckdir, "smoke", "latest", mods, opt)
+        save_s = time.perf_counter() - t_save
+        log(f"[driver] train: {n_steps} steps in {t_train:.2f} s (build, loader, saves "
+            f"included); steps 2-{n_steps}: {fps:.2f} frames/s "
+            f"({1e3 * sum(step_s) / len(step_s):.2f} ms/step), step times {step_s} s; "
+            f"launches {train_launches}; one checkpoint save {save_s:.4f} s; total_loss "
+            f"{recs[0]['total_loss']:.6g} -> {recs[-1]['total_loss']:.6g}; card {card}")
+
+        eval_args = monocular_evaluate.parse(common + ["--split", "test"])
+        eval_cfg = monocular_main.build_cfg(eval_args)
+        eval_template = monocular_main.build_cub_template(eval_cfg, eval_args)
+        test_set = CUBDataset(root, root, split="test", img_size=args.img_size,
+                              jitter_frac=0.0)
+        out = io.StringIO()
+        zero_launches()
+        with contextlib.redirect_stdout(out):
+            stats = monocular_evaluate.evaluate(eval_cfg, eval_template, test_set, eval_args)
+        eval_launches = read_launches()
+        n_eval = DRIVER_TEST // args.batch_size
+        require(eval_launches == only(soft=n_eval, hard=n_eval),
+                f"driver eval launches {eval_launches} != one soft and one hard per batch "
+                f"({n_eval} batches)")
+        lines = out.getvalue().strip().splitlines()
+        require(bool(re.fullmatch(r"mean iou \S+, pck\.1 \S+, pck\.15 \S+", lines[-1])),
+                f"driver eval: last line {lines[-1]!r}")
+        res = stats.results()
+        require(all(np.isfinite(v) for v in res.values()), f"driver eval: {res}")
+        log(f"[driver] evaluate (test split, {n_eval} batches): {lines[-1]!r}; launches "
+            f"{eval_launches}")
+
+        fresh = monocular.build(mods.cfg, mods.template, seed=1, device=device)
+        step_count = checkpoints.restore(ckdir, "smoke", "latest", fresh)
+        require(step_count == n_steps, f"driver restore: step {step_count} != {n_steps}")
+        trained = mods.model.state_dict()
+        for k, v in fresh.model.state_dict().items():
+            require(torch.equal(v, trained[k]), f"driver restore: {k} differs")
+        batch = next(iter(DataLoader(test_set, args.batch_size, shuffle=False)))
+        keys = ("mask_pred", "kp_pred", "pred_v", "cam_pred")
+
+        def outputs(m):
+            aux = monocular.make_eval_step(m)(batch)
+            return [aux[k] for k in keys] + [v for _, v in sorted(aux["metrics"].items())]
+
+        a, a2, b = outputs(mods), outputs(mods), outputs(fresh)
+        diff = max((x - y).abs().max().item() for x, y in zip(a, b))
+        floor = max((x - y).abs().max().item() for x, y in zip(a, a2))
+        require(diff == 0 or diff <= floor,
+                f"driver restore: eval outputs differ by {diff} (run-to-run {floor})")
+        log(f"[driver] restore of latest into a fresh build: state equal; eval step vs the "
+            f"trained modules max abs diff {diff:.3g} (trained vs itself {floor:.3g})")
+    log(f"[driver] phase {time.perf_counter() - t_phase:.2f} s")
+    return {"frames_per_s": fps, "loader_batches_per_s": loader_bps,
+            "save_s": save_s, "train_launches": train_launches,
+            "eval_launches": eval_launches}
+
+
 def _flow_shapes(net_hw):
     """The cost volume's distinct (md, C, H, W) of one pass of the net at
     net_hw, finest last per md, with its launches per two-stage pass:
@@ -846,6 +1018,11 @@ def main(argv=None) -> int:
     from acfm_video_3d_reconstruction_tpu_torch.train import monocular
 
     device = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    card = smi.stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -865,6 +1042,7 @@ def main(argv=None) -> int:
     eval_fps, eval_spread, eval_launches = phase_eval(torch, mods, batch, args.profile)
     train_fps, train_spread, train_launches = phase_train(torch, mods, batch, args.profile)
     del mods, batch
+    driver = phase_driver(torch, device, card)
 
     records += phase_flow_kernels(torch, device)
     phase_flow_small(torch, device)
@@ -875,24 +1053,24 @@ def main(argv=None) -> int:
                "correlation_md2": "corr_md2"}
     for r in records:
         r["launches"] = sum(launches[counter[r["name"]]]
-                            for launches in (eval_launches, train_launches, flow_launches))
+                            for launches in (eval_launches, train_launches, flow_launches,
+                                             driver["train_launches"], driver["eval_launches"]))
     n_eval, n_train = EVAL_WINDOWS * EVAL_STEPS, TRAIN_WINDOWS * TRAIN_STEPS
     n_flow = FLOW_WINDOWS * FLOW_CALLS
     log("[result] " + json.dumps({
         "eval_frames_per_s_median": eval_fps, "eval_frames_per_s_spread": eval_spread,
         "train_frames_per_s_median": train_fps, "train_frames_per_s_spread": train_spread,
         "flow_pairs_per_s_median": flow_pps, "flow_pairs_per_s_spread": flow_spread,
+        "driver_frames_per_s": driver["frames_per_s"],
+        "driver_loader_batches_per_s": driver["loader_batches_per_s"],
+        "driver_save_s": driver["save_s"],
         "batch": B, "image_size": IMG, "eval_steps": n_eval, "train_steps": n_train,
         "flow_pairs_per_call": FLOW_B, "flow_net_hw": FLOW_NET_HW, "flow_calls": n_flow,
         "launches_per_eval_step": {k: v / n_eval for k, v in eval_launches.items()},
         "launches_per_train_step": {k: v / n_train for k, v in train_launches.items()},
         "launches_per_flow_call": {k: v / n_flow for k, v in flow_launches.items()}}))
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    print(smi.stdout.strip().splitlines()[0])
+    print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -406,17 +406,19 @@ class TestCullWindows:
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, imports without JAX or
-    the JAX package."""
+    """Every module of the port, and chip_smoke.py, imports without JAX, flax,
+    orbax, absl or the JAX package; importing chip_smoke loads neither PIL
+    nor cv2 (the data path imports them where it reads or resizes)."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import chip_smoke\n"
+        "host = [k for k in sys.modules if k.split('.')[0] in ('PIL', 'cv2')]\n"
+        "assert not host, host\n"
         "import acfm_video_3d_reconstruction_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
-        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "       or k == 'flax' or k.startswith('flax.')\n"
-        "       or k.split('.')[0] == 'acfm_video_3d_reconstruction_tpu']\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in\n"
+        "       ('jax', 'flax', 'orbax', 'absl', 'acfm_video_3d_reconstruction_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
