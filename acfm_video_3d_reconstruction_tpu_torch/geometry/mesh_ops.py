@@ -4,6 +4,11 @@ Counterpart of acfm_video_3d_reconstruction_tpu/geometry/mesh_ops.py. The
 host-side constructors are numpy copies that give the same arrays bit for bit;
 the per-step terms work on torch tensors. Laplacians are dense (V x V):
 V=642 for the standard template.
+
+The cotangent weights are assembled by a fixed gather, not a scatter-add:
+`CotEdges` lists, once per face array, the (face, corner) cotangents that
+land on each undirected edge, so W sums the same terms in the same order on
+every run (index_add_ on CUDA sums with atomics, in a varying order).
 """
 from __future__ import annotations
 
@@ -80,6 +85,100 @@ def compute_uvsampler(verts: np.ndarray, faces: np.ndarray, tex_size: int = 2) -
     samples = np.transpose(samples, (0, 2, 1)).reshape(-1, 3)
     uv = get_spherical_coords(samples)
     return uv.reshape(-1, tex_size, tex_size, 2)
+
+
+# ------------------------------------------------------- cot Laplacian --
+
+class CotEdges:
+    """The assembly plan of the dense cotangent weight matrix of `faces`.
+
+    W[i, j] of the JAX package is the sum of the corner cotangents c[f, k]
+    scattered to the ordered pair (faces[f, (k+1)%3], faces[f, (k+2)%3]),
+    plus its transpose. Per undirected edge (a < b): `fwd` holds the flat
+    indices f*3 + k of the corners scattered to (a, b), `bwd` those
+    scattered to (b, a), each in face order and padded with 3F, the index
+    of an appended zero; W[a, b] = W[b, a] = sum(fwd) + sum(bwd).
+    """
+
+    def __init__(self, faces, num_verts: int | None = None, device=None):
+        f = np.asarray(faces.cpu() if torch.is_tensor(faces) else faces, np.int64)
+        V = int(f.max()) + 1 if num_verts is None else num_verts
+        ii = f[:, [1, 2, 0]].reshape(-1)
+        jj = f[:, [2, 0, 1]].reshape(-1)
+        lo, hi = np.minimum(ii, jj), np.maximum(ii, jj)
+        keys, inv = np.unique(lo * V + hi, return_inverse=True)
+        fwd = [[] for _ in keys]
+        bwd = [[] for _ in keys]
+        for slot, (e, i) in enumerate(zip(inv.reshape(-1), ii)):
+            (fwd if i == lo[slot] else bwd)[e].append(slot)
+        width = max(1, max(len(x) for x in fwd + bwd))
+        pad = 3 * len(f)
+
+        def table(rows):
+            return torch.tensor([r + [pad] * (width - len(r)) for r in rows], device=device)
+
+        self.num_verts = V
+        self.a = torch.as_tensor(keys // V, device=device)
+        self.b = torch.as_tensor(keys % V, device=device)
+        self.fwd, self.bwd = table(fwd), table(bwd)
+        self.faces = torch.as_tensor(f, device=device)
+
+
+def _cot_edges(faces) -> CotEdges:
+    return faces if isinstance(faces, CotEdges) else CotEdges(faces)
+
+
+def cot_laplacian_weights(verts: torch.Tensor, faces) -> torch.Tensor:
+    """Dense symmetric cotangent weight matrix W (..., V, V), differentiable.
+
+    W[i, j] = (cot a_ij + cot b_ij) / 4 on edges, 0 elsewhere; the area
+    clamped at 1e-12 as in the reference (geom_utils.py:258-325). verts
+    (..., V, 3); `faces` (F, 3) or a CotEdges built from them (the
+    trainer's, made once).
+    """
+    ce = _cot_edges(faces)
+    fv = verts[..., ce.faces, :]  # (..., F, 3, 3)
+    v0, v1, v2 = fv[..., 0, :], fv[..., 1, :], fv[..., 2, :]
+    A = safe_norm(v1 - v2, dim=-1)
+    B = safe_norm(v0 - v2, dim=-1)
+    C = safe_norm(v0 - v1, dim=-1)
+    s = 0.5 * (A + B + C)
+    area = torch.sqrt(torch.clamp(s * (s - A) * (s - B) * (s - C), min=1e-12))
+    A2, B2, C2 = A * A, B * B, C * C
+    cot = torch.stack([(B2 + C2 - A2) / area, (A2 + C2 - B2) / area,
+                       (A2 + B2 - C2) / area], dim=-1) / 4.0  # (..., F, 3)
+    flat = cot.reshape(*cot.shape[:-2], -1)
+    flat = torch.cat([flat, flat.new_zeros(flat.shape[:-1] + (1,))], dim=-1)
+    vals = flat[..., ce.fwd].sum(-1) + flat[..., ce.bwd].sum(-1)  # (..., E)
+    V = verts.shape[-2]
+    W = verts.new_zeros(verts.shape[:-2] + (V, V))
+    W[..., ce.a, ce.b] = vals
+    W[..., ce.b, ce.a] = vals
+    return W
+
+
+def cot_laplacian(verts: torch.Tensor, faces) -> torch.Tensor:
+    """Dense cot Laplacian L = W - diag(rowsum(W)) (reference
+    geom_utils.py:249-255)."""
+    W = cot_laplacian_weights(verts, faces)
+    return W - torch.diag_embed(W.sum(-1))
+
+
+def cot_laplacian_smoothing(verts: torch.Tensor, faces) -> torch.Tensor:
+    """pytorch3d mesh_laplacian_smoothing(method='cot') equivalent.
+
+    The weights are computed from each mesh under no_grad (pytorch3d builds
+    them under torch.no_grad(), the JAX package behind stop_gradient);
+    gradients flow only through the final matmul. Loss per vertex
+    ||(W v)_i / rowsum(W)_i - v_i||; mean over vertices, then over the batch.
+    verts (B, V, 3).
+    """
+    with torch.no_grad():
+        W = cot_laplacian_weights(verts, faces)
+        norm_w = W.sum(-1, keepdim=True)
+        norm_w = torch.where(norm_w > 0, 1.0 / norm_w, torch.zeros_like(norm_w))
+    Lv = torch.bmm(W, verts) * norm_w - verts
+    return safe_norm(Lv, dim=-1).mean(-1).mean()
 
 
 # ------------------------------------------------------------ torch terms --

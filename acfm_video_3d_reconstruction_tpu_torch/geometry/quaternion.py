@@ -1,7 +1,8 @@
 """Quaternion utilities (w, x, y, z convention) on torch tensors.
 
 Counterpart of acfm_video_3d_reconstruction_tpu/geometry/quaternion.py:
-the functions the camera model and the camera loss need. All broadcast
+the functions the camera model, the camera decoders and the camera loss
+need. All broadcast
 over leading batch dims; quaternions live in the trailing axis of size 4.
 """
 from __future__ import annotations
@@ -47,6 +48,12 @@ def quat_rotate(X: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     Xq = torch.cat([torch.zeros_like(X[..., :1]), X], dim=-1)
     out = hamilton_product(qn, hamilton_product(Xq, quat_conj(qn)))
     return out[..., 1:]
+
+
+def axis_angle_to_quat(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Axis (..., 3) (unit) + angle (...,) -> quaternion (..., 4)."""
+    half = angle[..., None] / 2.0
+    return torch.cat([torch.cos(half), axis * torch.sin(half)], dim=-1)
 
 
 def quat_geodesic_loss(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:

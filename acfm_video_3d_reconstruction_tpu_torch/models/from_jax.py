@@ -17,7 +17,8 @@ Conventions:
 JAX step's updated `params` / `batch_stats` pair, converted, is compared
 with the port's `state_dict` after its own step from the same weights.
 Adam's moments start at zero on both sides, so no optimizer state needs
-carrying across.
+carrying across. `load_jax_multiframe` carries a JAX MFTrainState's model,
+LPIPS and multiplex tables into the multiframe trainer's modules.
 """
 from __future__ import annotations
 
@@ -110,6 +111,26 @@ def load_jax_weights(mods, params: Mapping, batch_stats: Mapping,
     mods.model.load_state_dict(convert(mods.model, params, batch_stats))
     if mods.lpips is not None:
         mods.lpips.load_state_dict(convert(mods.lpips, lpips_params))
+
+
+def load_jax_multiframe(mods, params: Mapping, batch_stats: Mapping, lpips_params: Mapping,
+                        multiplex: Mapping) -> None:
+    """Load a JAX MFTrainState's trees into a built train/multiframe.py
+    MFModules: the model and LPIPS as load_jax_weights does, and the
+    multiplex tables from `multiplex` = {"cams", "probs", "deform",
+    "deform_mirror"} (numpy arrays; deform entries None when the run trains
+    none), checked against the port's tables entry for entry and shape for
+    shape. The optimizers keep their state (Adam's moments start at zero
+    on both sides)."""
+    load_jax_weights(mods, params, batch_stats, lpips_params)
+    target = mods.mpx.state_dict()
+    given = {k: v for k, v in multiplex.items() if v is not None}
+    if set(given) != set(target):
+        raise KeyError(f"multiplex tables {sorted(given)} vs the port's {sorted(target)}")
+    for k, arr in given.items():
+        if tuple(np.shape(arr)) != tuple(target[k].shape):
+            raise ValueError(f"multiplex {k}: shape {np.shape(arr)} vs {tuple(target[k].shape)}")
+    mods.mpx.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in given.items()})
 
 
 def maskflownet_from_jax(params: Mapping) -> dict:

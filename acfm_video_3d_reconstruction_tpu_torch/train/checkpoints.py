@@ -5,7 +5,11 @@ there). A checkpoint is one file, `<checkpoint_dir>/<name>/pred_net_<label>.pth`
 holding what the JAX TrainState holds: {"model": the MeshNet state_dict
 (parameters and BatchNorm statistics), "lpips": the LPIPS state_dict ({}
 without texture), "optimizer": the Adam state_dict (moments and step count)
-or None, "step": the train steps taken}. The labels are JAX's (reference
+or None, "step": the train steps taken}. The multiframe trainer's file
+(`save_multiframe`) holds what the JAX MFTrainState holds: the model, LPIPS,
+"multiplex" (the tables and probs, train/multiframe.py::Multiplex),
+"optimizer" (the full Adam), "warmup_optimizer" (the pose warm-up Adam) and
+"step" (warm-up and train steps). The labels are JAX's (reference
 train_utils.py:83-110): 'latest', '<epoch>', and 'warmup' /
 'texture_warmup' for the multiframe trainer. Files load with
 weights_only=True, as flow/infer.py::load_flow_checkpoint does.
@@ -34,14 +38,30 @@ def save(checkpoint_dir: str, name: str, label: str | int, mods,
     """Save the modules' state (and `opt`'s) under a reference-style label.
     Written to a temporary file first and renamed, so an interrupted save
     leaves the previous checkpoint whole."""
-    out = path(checkpoint_dir, name, label)
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    state = {
+    return _write(checkpoint_dir, name, label, {
         "model": mods.model.state_dict(),
         "lpips": mods.lpips.state_dict() if mods.lpips is not None else {},
         "optimizer": opt.state_dict() if opt is not None else None,
         "step": steps_taken(opt),
-    }
+    })
+
+
+def save_multiframe(checkpoint_dir: str, name: str, label: str | int, mods) -> str:
+    """Save a train/multiframe.py MFModules (model, LPIPS, multiplex tables,
+    both optimizers, step) under a reference-style label."""
+    return _write(checkpoint_dir, name, label, {
+        "model": mods.model.state_dict(),
+        "lpips": mods.lpips.state_dict() if mods.lpips is not None else {},
+        "multiplex": mods.mpx.state_dict(),
+        "optimizer": mods.opt.state_dict(),
+        "warmup_optimizer": mods.warm_opt.state_dict(),
+        "step": mods.step,
+    })
+
+
+def _write(checkpoint_dir: str, name: str, label: str | int, state: dict) -> str:
+    out = path(checkpoint_dir, name, label)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     torch.save(state, out + ".tmp")
     os.replace(out + ".tmp", out)
     return out
@@ -79,6 +99,31 @@ def _optimizer_fits(opt: torch.optim.Optimizer, saved: Optional[dict]) -> bool:
     return True
 
 
+def _load_modules(mods, state: dict, strict: bool) -> None:
+    if strict:
+        mods.model.load_state_dict(state["model"])
+        if mods.lpips is not None:
+            mods.lpips.load_state_dict(state["lpips"])
+        elif state["lpips"]:
+            raise KeyError("checkpoint holds LPIPS weights; the modules have no LPIPS")
+        return
+    _graft(mods.model, state["model"], "model")
+    if mods.lpips is not None:
+        _graft(mods.lpips, state["lpips"], "lpips")
+
+
+def _load_optimizer(opt: torch.optim.Optimizer, saved: Optional[dict], key: str,
+                    strict: bool) -> None:
+    if strict:
+        if saved is None:
+            raise KeyError(f"checkpoint holds no {key} state")
+        opt.load_state_dict(saved)
+    elif _optimizer_fits(opt, saved):
+        opt.load_state_dict(saved)
+    else:
+        print(f"[restore non-strict] {key} state does not fit the optimizer; keeping target")
+
+
 def restore(checkpoint_dir: str, name: str, label: str | int, mods,
             opt: Optional[torch.optim.Optimizer] = None, strict: bool = True) -> int:
     """Load a checkpoint into the modules (and `opt`) in place; returns the
@@ -96,27 +141,30 @@ def restore(checkpoint_dir: str, name: str, label: str | int, mods,
     """
     state = torch.load(path(checkpoint_dir, name, label), map_location="cpu",
                        weights_only=True)
-    if strict:
-        mods.model.load_state_dict(state["model"])
-        if mods.lpips is not None:
-            mods.lpips.load_state_dict(state["lpips"])
-        elif state["lpips"]:
-            raise KeyError("checkpoint holds LPIPS weights; the modules have no LPIPS")
-        if opt is not None:
-            if state["optimizer"] is None:
-                raise KeyError("checkpoint holds no optimizer state")
-            opt.load_state_dict(state["optimizer"])
-        return int(state["step"])
-    _graft(mods.model, state["model"], "model")
-    if mods.lpips is not None:
-        _graft(mods.lpips, state["lpips"], "lpips")
+    _load_modules(mods, state, strict)
     if opt is not None:
-        if _optimizer_fits(opt, state["optimizer"]):
-            opt.load_state_dict(state["optimizer"])
-        else:
-            print("[restore non-strict] optimizer state does not fit the optimizer; "
-                  "keeping target")
+        _load_optimizer(opt, state["optimizer"], "optimizer", strict)
     return int(state["step"])
+
+
+def restore_multiframe(checkpoint_dir: str, name: str, label: str | int, mods,
+                       strict: bool = True) -> int:
+    """Load a save_multiframe checkpoint into an MFModules in place (model,
+    LPIPS, multiplex tables and probs, both optimizers, step); returns the
+    step. strict=False has restore's non-strict semantics, entry by entry,
+    the multiplex tables included (the multiframe driver's --load_warmup
+    and num_pretrain_epochs resumes restore so, as the JAX driver does)."""
+    state = torch.load(path(checkpoint_dir, name, label), map_location="cpu",
+                       weights_only=True)
+    _load_modules(mods, state, strict)
+    if strict:
+        mods.mpx.load_state_dict(state["multiplex"])
+    else:
+        _graft(mods.mpx, state.get("multiplex", {}), "multiplex")
+    for opt, key in ((mods.opt, "optimizer"), (mods.warm_opt, "warmup_optimizer")):
+        _load_optimizer(opt, state.get(key), key, strict)
+    mods.step = int(state["step"])
+    return mods.step
 
 
 def exists(checkpoint_dir: str, name: str, label: str | int) -> bool:

@@ -17,14 +17,15 @@ import torch
 _SENTINEL = object()
 
 
-def to_device(batch: dict, keys, device: torch.device) -> dict:
-    """The batch's `keys` as float32 tensors on `device`. On a CUDA device
-    each goes through pinned memory with a non-blocking copy, enqueued on
-    the calling thread's current stream (the default stream), so the step's
-    kernels, launched later on that stream, are ordered after it."""
+def to_device(batch: dict, keys, device: torch.device, int_keys=()) -> dict:
+    """The batch's `keys` as float32 tensors (`int_keys` int64) on `device`.
+    On a CUDA device each goes through pinned memory with a non-blocking
+    copy, enqueued on the calling thread's current stream (the default
+    stream), so the step's kernels, launched later on that stream, are
+    ordered after it."""
     out = {}
     for k in keys:
-        t = torch.as_tensor(batch[k], dtype=torch.float32)
+        t = torch.as_tensor(batch[k], dtype=torch.long if k in int_keys else torch.float32)
         out[k] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
     return out
 

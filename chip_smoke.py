@@ -66,6 +66,24 @@ Phases, each of which raises (exit code 1) on failure:
      d. the flow CLI's path, predict_flow_native on one 436x1024 pair
         (stretched to 448x1024): finite, 15 launches, and within relative
         error 1e-4 of the same call through correlation_plain.
+  6. multiframe: camera-multiplex training as users run it, the CLI's
+     `train` (cli/multiframe_main.py) at its defaults (the horse model: G 8
+     hypotheses, batch 8 clips of 2 frames, 256², 642 vertices, 15
+     handles, nz_feat 200, texture on, f32, the frozen flow net at 384x768
+     with seeded random weights) on a TigDog-format tree from
+     tools/tigdog_fixture.py (4 clips of 8 frames at 360x640), with the pose
+     warm-up, the camera-embedding init and one epoch: 4 warm-up and 4
+     train steps. Exactly 1 soft + 1 soft_bwd per warm-up step, 1 soft + 1
+     hard + 1 soft_bwd per train step and 15 cost volumes per batch; the
+     first step's bin_overflow_counts, time_per_iter, peak memory, the
+     cost volume's launch_plan at 8 pairs; the latest checkpoint restored
+     into a fresh build gives the same loss matrix bit for bit; one train
+     step's forward and backward through the kernels against the same
+     through the plain rasterizer and correlation_plain (deterministic
+     algorithms, so the floor is 0: loss matrix, probs and every gradient
+     within 1e-4, mean_v, behind the solve's adjoint, within 1e-3); each
+     kernel alone at the step's 128 views and 8 pairs with its bound; with
+     --profile, device ms of one flow call and one train step by kind.
 The launch counters of every kernel are zeroed just before each main path
 and read just after it.
 The second-to-last lines are the card's name and power limit, then one
@@ -804,6 +822,439 @@ def phase_driver(torch, device, card):
             "eval_launches": eval_launches}
 
 
+# the multiframe phase: the CLI's defaults on a TigDog-format tree of
+# MF_VIDEOS clips of MF_FRAMES frames at MF_RAW (tools/tigdog_fixture.py):
+# 32 frames, so 4 steps of batch 8 an epoch
+MF_VIDEOS, MF_FRAMES, MF_RAW = 4, 8, (360, 640)
+# kernel names of one train step's profile, by kind (first match wins)
+MF_KINDS = (("rasterizer kernels", ("raster_fwd_kernel", "raster_bwd")),
+            ("cost volume", ("corr_tile", "corr_split")),
+            ("Adam", ("multi_tensor_apply", "adam")),
+            ("solve (Cholesky)", ("potrf", "potrs", "trsm", "cholesky", "syrk")),
+            ("bilinear upsampling backward (LPIPS)", ("upsample_bilinear2d_backward",)),
+            ("convolutions and matmuls (im2col, FFT included)",
+             ("conv", "gemm", "cutlass", "xmma", "sm90", "wgrad", "dgrad", "implicit",
+              "winograd", "fft", "im2col", "col2im", "complex", "nhwctonchw", "nchwtonhwc")))
+
+
+def _mf_grads(mods):
+    """Every gradient of one multiframe forward+backward: the model's
+    parameters (zeros where none reached them, as the step's Adam sees
+    them) and the multiplex tables'."""
+    import torch
+
+    out = {}
+    for prefix, module in (("", mods.model), ("mpx.", mods.mpx)):
+        for k, p in module.named_parameters():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            out[prefix + k] = g.detach().float().cpu()
+    return out
+
+
+# mean_v's gradient leaves the screened-Poisson solve through its adjoint,
+# whose f32 rounding the cot Laplacian's near-nullspace amplifies (at zero
+# handle offsets the exact adjoint is the identity): held at the bound of
+# tests/test_torch_port_train.py::test_solve_gradient_matches_jax for two
+# f32 roundings of the solve's gradient. The solve's input gradient, pred_v's,
+# is held at the kernels' bound with every other tensor.
+SOLVE_FED = {"mean_v": 1e-3}
+
+
+def _mf_grad_errors(g_a, g_b, what, bound):
+    """_grad_errors over the multiframe gradients (SOLVE_FED's tensors at
+    their own bound); a tensor whose gradient is exactly zero on both sides
+    (no loss term reaches it) passes. Logs the four largest errors."""
+    import torch
+
+    errs = {}
+    for k, gb in g_b.items():
+        ref = torch.linalg.vector_norm(g_b[NOISE_SCALE.get(k, k)])
+        diff = torch.linalg.vector_norm(g_a[k] - gb)
+        errs[k] = 0.0 if diff == 0 else (diff / ref).item() if ref > 0 else float("inf")
+    ranked = sorted(errs.items(), key=lambda kv: -kv[1])
+    log(f"[multiframe] {what}: largest gradient rel errors "
+        + ", ".join(f"{k} {v:.3g}" for k, v in ranked[:4]))
+    over = [(k, v) for k, v in ranked if v > SOLVE_FED.get(k, bound)]
+    require(not over, f"{what}: gradient rel errors {over} over their bounds ({bound}, "
+            f"{SOLVE_FED})")
+    return next((k, v) for k, v in ranked if k not in SOLVE_FED), \
+        {k: errs[k] for k in SOLVE_FED if k in errs}
+
+
+def _mf_kernels(torch, proj, faces, S, net_hw, nb):
+    """Each kernel alone at the multiframe step's shapes, with its bound:
+    the rasterizer kernels on the first train step's projected views (their
+    C entries on counts and outputs made once, time_cuda), the bytes each
+    must move (as phase_kernels counts them) and, for the operations, every
+    (pixel, slot) pair inside the cull windows at the inside and distance
+    tests' cost (OPS_TEST) plus OPS_PER_FACE per (view, face), which is
+    less than the work (pairs in radius cost OPS_PER_PAIR); the cost
+    volume's pass at `nb` pairs (time_device per shape) against its bytes.
+    Returns {name: (ms, bound_ms, bound_by)}."""
+    from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
+    from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer as ras
+    from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
+
+    V = proj.shape[0]
+    K = rc.auto_K(faces.shape[0], S, ras.DEFAULT_K)
+    out = {}
+    for mode, soft, blur in (("soft", True, rc.BLUR_RADIUS), ("hard", False, 0.0),
+                             ("soft_bwd", True, rc.BLUR_RADIUS)):
+        table, idx, th, tw = rc.bin_faces(proj, faces, S, K, blur)
+        counts = (idx >= 0).sum(-1, dtype=torch.int32)
+        needed = rc.cull_pair_counts(rc.cull_windows(table, S, th, tw, blur, soft), idx, th,
+                                     tw)["needed"]
+        ops = needed * OPS_TEST[mode] + V * faces.shape[0] * OPS_PER_FACE[mode]
+        if mode == "soft_bwd":
+            dS = torch.ones(V, S, S, device=proj.device)
+            grad = torch.empty_like(table)
+            nbytes = 2 * table.numel() * 4 + counts.numel() * 4 + dS.numel() * 4
+            ms = time_cuda(lambda: rc.launch_bwd(rc.bwd_entry(), table, counts, dS, grad, S, th,
+                                                 tw, rc.SIGMA, blur), 10)
+        else:
+            frags = rc.forward_cuda(table, idx, S, th, tw, rc.SIGMA, blur, soft)
+            nbytes = (table.numel() + idx.numel() + counts.numel() + 5 * V * S * S) * 4
+            ms = time_cuda(lambda: rc.launch_fwd(rc.fwd_entry(), table, idx, counts, frags, S,
+                                                 th, tw, rc.SIGMA, blur, soft), 10)
+        out[mode] = (ms, *_bound(ops, nbytes))
+        log(f"[multiframe] {mode} at {V} views: kernel alone {ms:.4f} ms, bound "
+            f"{out[mode][1]:.4f} ms ({out[mode][2]}; {nbytes / 1e6:.1f} MB, {needed} needed "
+            f"pairs)")
+    fn = cc.entry()
+    pass_ms = pass_bound = 0.0
+    for md, C, H, W, per_pass in _flow_shapes(net_hw):
+        f1, f2 = (torch.randn(nb, C, H, W, device=proj.device) for _ in range(2))
+        vol = cc.correlation_cuda(f1, f2, md)
+        nd = (2 * md + 1) ** 2
+        pass_ms += per_pass * time_device(lambda: cc.launch(fn, f1, f2, vol, md), 50)
+        pass_bound += per_pass * _bound(2 * nb * H * W * C * nd,
+                                        4 * (2 * nb * H * W * C + nb * H * W * nd))[0]
+    out["cost volume pass"] = (pass_ms, pass_bound, "bytes")
+    log(f"[multiframe] cost volumes of one pass at {nb} pairs (15 launches), alone "
+        f"{pass_ms:.4f} ms, bound {pass_bound:.4f} ms (bytes)")
+    return out
+
+
+def _kinds(events) -> dict:
+    """Device ms of a profile's kernels by MF_KINDS, the rest as "other"."""
+    out = {kind: 0.0 for kind, _ in MF_KINDS}
+    out["other (elementwise, reductions, indexing; the bin pass)"] = 0.0
+    for e in events:
+        ms = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+        if ms <= 0:
+            continue
+        name = e.key.lower()
+        kind = next((k for k, keys in MF_KINDS if any(x in name for x in keys)),
+                    "other (elementwise, reductions, indexing; the bin pass)")
+        out[kind] += ms
+    return out
+
+
+def _mf_profile(torch, call, what, path):
+    """Device ms of one call by kind (torch.profiler), its 12 largest
+    kernels, appended to `path` when given."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None and "cuda" in str(e.device_type).lower()]
+    kinds = _kinds(events)
+    total = sum(kinds.values())
+    top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total",
+                                                getattr(e, "self_cuda_time_total", 0)))[:12]
+    log(f"[multiframe] profile of {what}: {total:.3f} ms of device time; by kind "
+        + json.dumps({k: round(v, 4) for k, v in kinds.items()}))
+    for e in top:
+        t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+        log(f"[multiframe]   {t:9.4f} ms x{e.count:4d}  {e.key[:110]}")
+    if path:
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+        with open(path, "a") as fh:
+            fh.write(f"==== {what} ====\n{table}\n")
+    return total, kinds
+
+
+def phase_multiframe(torch, device, card, profile=None, **overrides):
+    """Multiframe camera-multiplex training as users run it: the CLI's
+    `train` (cli/multiframe_main.py) at its defaults, the full-width horse
+    model (G 8, B 8, T 2, 256², icosphere subdivide 3, 15 handles, nz_feat
+    200, tex 6, texture on, f32 nets, TF32 off), the frozen two-stage
+    MaskFlownet at 384x768 with seeded random weights (--flow_random_init),
+    on a TigDog-format tree from tools/tigdog_fixture.py; with --warmup
+    --num_reps 1 --init_camera_emb, one epoch. `overrides` change options
+    (the CPU rehearsal shrinks the model and the flow net).
+
+    Launches over the run, exactly: per warm-up step 1 soft + 1 soft_bwd,
+    per train step 1 soft + 1 hard + 1 soft_bwd, per batch of either (the
+    flow pass of prep) 5 md=4 + 10 md=2 cost volumes; the init pass none.
+    Every metrics.jsonl record finite; the warmup, latest and epoch-1
+    checkpoints written. Logs bin_overflow_counts of the first warm-up and
+    train step's views, the steps' time_per_iter, the run's peak memory,
+    the cost volume's launch_plan at the 8-pair shapes. Then, on the first
+    train batch, from the trained state: the latest checkpoint restored
+    into a fresh build gives the same loss matrix bit for bit (eval mode,
+    beside the trained modules' own run-to-run difference); one train
+    step's forward and backward through the kernels against the same
+    through the plain rasterizer on flows through correlation_plain, under
+    deterministic algorithms (deterministic_algorithms: the kernel path
+    then repeats bit for bit; the floor with PyTorch's default algorithms
+    is logged beside it): the loss matrix and probs within rel 1e-4 per
+    entry, each gradient tensor and pred_v's within vector relative error
+    1e-4 (NOISE_SCALE's against their neighbour's scale; zero on both sides
+    passes), SOLVE_FED's at their bound, beside the solve adjoint's own f32
+    rounding; the step's peak memory; each kernel alone at the step's
+    shapes with its bound (_mf_kernels); with `profile`, device ms of one
+    flow call and of one train step by kind, the bin pass and LPIPS alone.
+    """
+    import os
+    import tempfile
+
+    from tools.tigdog_fixture import write_tigdog_tree
+
+    from acfm_video_3d_reconstruction_tpu_torch.cli import multiframe_main
+    from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
+    from acfm_video_3d_reconstruction_tpu_torch.flow.infer import NET_H, NET_W
+    from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer as ras
+    from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
+    from acfm_video_3d_reconstruction_tpu_torch.train import checkpoints
+    from acfm_video_3d_reconstruction_tpu_torch.train import multiframe as mf
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_tigdog_tree(os.path.join(tmp, "pkls"), "horse", MF_VIDEOS, MF_FRAMES, MF_RAW)
+        log(f"[multiframe] TigDog tree: {MF_VIDEOS} clips of {MF_FRAMES} frames at "
+            f"{MF_RAW[0]}x{MF_RAW[1]} written in {time.perf_counter() - t0:.2f} s")
+        o = multiframe_main.default_opts()
+        o.update(name="smoke", root_dir=os.path.join(tmp, "pkls"),
+                 tmp_dir=os.path.join(tmp, "cache"), checkpoint_dir=os.path.join(tmp, "snap"),
+                 flow_random_init=True, warmup=True, num_reps=1, init_camera_emb=True,
+                 num_epochs=1, save_epoch_freq=1, log_every=1, device=str(device))
+        o.update(overrides)
+        G, B, T, S = o["num_guesses"], o["batch_size"], o["num_frames"], o["img_size"]
+        net_hw = o.get("flow_net_hw", (NET_H, NET_W))
+
+        # bin overflow of the first warm-up and train step's views; the
+        # first train batch and the modules, for the checks after the run
+        overflow, captured = {}, {}
+
+        def watch(fn, what):
+            def wrapped(verts, faces, *args, **kw):
+                if what not in overflow:
+                    K = rc.auto_K(faces.shape[0], S, ras.DEFAULT_K)
+                    ovf = rc.bin_overflow_counts(verts.detach(), faces, S, K)
+                    overflow[what] = (tuple(verts.shape), K, int(ovf.max()), int((ovf > 0).sum()),
+                                      int(ovf.sum()))
+                    captured[what] = verts.detach()
+                return fn(verts, faces, *args, **kw)
+            return wrapped
+
+        make_train_step = mf.make_train_step
+
+        def capturing_train_step(mods, **kw):
+            step = make_train_step(mods, **kw)
+
+            def run(batch):
+                captured.setdefault("batch", batch)
+                captured["mods"] = mods
+                return step(batch)
+            return run
+
+        swaps = ((ras, "soft_silhouette_vis", watch(ras.soft_silhouette_vis, "warm-up")),
+                 (ras, "soft_silhouette_vis_tex", watch(ras.soft_silhouette_vis_tex, "train")),
+                 (mf, "make_train_step", capturing_train_step))
+        saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+        for m, n, f in swaps:
+            setattr(m, n, f)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            t0 = time.perf_counter()
+            mods = multiframe_main.train(o)
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            for m, n, f in saved:
+                setattr(m, n, f)
+        peak_run = torch.cuda.max_memory_allocated()
+        save_dir = os.path.join(o["checkpoint_dir"], "smoke")
+        with open(os.path.join(save_dir, "metrics.jsonl")) as fh:
+            recs = [json.loads(line) for line in fh if line.strip()]
+        warm = [r for r in recs if "warmup_loss" in r]
+        main_recs = [r for r in recs if "total_loss" in r]
+        n_w, n_t = len(warm), len(main_recs)
+        require(n_w > 0 and n_t > 0 and n_w + n_t == len(recs),
+                f"multiframe: {n_w} warm-up and {n_t} train records of {len(recs)}")
+        for r in recs:
+            bad = [k for k, v in r.items() if not np.isfinite(v)]
+            require(not bad, f"multiframe: non-finite {bad} at step {r['step']}")
+        for label in ("warmup", "latest", 1):
+            require(checkpoints.exists(o["checkpoint_dir"], "smoke", label),
+                    f"multiframe: checkpoint {label} not written")
+        n_b = n_w + n_t
+        require(launches == only(soft=n_b, hard=n_t, soft_bwd=n_b, corr_md4=5 * n_b,
+                                 corr_md2=10 * n_b),
+                f"multiframe launches {launches} != per warm-up step 1 soft + 1 soft_bwd, per "
+                f"train step 1 soft + 1 hard + 1 soft_bwd, per batch 15 cost volumes "
+                f"({n_w} warm-up and {n_t} train steps)")
+        require(main_recs[0]["of_loss"] > 0, "multiframe: of_loss is zero")
+        log(f"[multiframe] train (CLI defaults G={G} B={B} T={T} {S}^2, "
+            f"{mods.template.num_verts} verts, {mods.template.num_faces} faces, flow net "
+            f"{net_hw}): {n_w} warm-up + {n_t} train steps in {t_train:.2f} s (build, fixture "
+            f"cache, init pass and saves included); launches {launches}; per warm-up step "
+            f"1 soft + 1 soft_bwd, per train step 1 soft + 1 hard + 1 soft_bwd, 15 cost volumes "
+            f"per batch; peak memory of the run {peak_run / 2**30:.3f} GiB; card {card}")
+        log(f"[multiframe] bin_overflow_counts (views shape, K, max per bin, bins over, faces "
+            f"dropped): {json.dumps(overflow)}")
+        log("[multiframe] time_per_iter warm-up " + json.dumps([r["time_per_iter"] for r in warm])
+            + ", train " + json.dumps([r["time_per_iter"] for r in main_recs]))
+        log("[multiframe] first train record " + json.dumps(main_recs[0]))
+        for md, C, H, W, per_pass in _flow_shapes(net_hw):
+            log(f"[multiframe] launch_plan md={md} {B}x{C}x{H}x{W} (x{per_pass}): "
+                f"{cc.launch_plan(B, C, H, W, md)}")
+
+        batch, mods = captured["batch"], captured["mods"]
+        k = G  # drop_hypothesis is off: every hypothesis, every epoch
+
+        def loss_matrix(m):
+            with torch.no_grad():
+                return mf.forward(m, batch, k=k, train=False)[1]["loss_matrix"]
+
+        fresh = mf.build(mods.cfg, mods.template, mods.mpx.probs.shape[0], seed=1,
+                         device=device)
+        step_count = checkpoints.restore_multiframe(o["checkpoint_dir"], "smoke", "latest",
+                                                    fresh)
+        require(step_count == n_b, f"multiframe restore: step {step_count} != {n_b}")
+        for mine, theirs in ((mods.model, fresh.model), (mods.mpx, fresh.mpx)):
+            ref = mine.state_dict()
+            for name, v in theirs.state_dict().items():
+                require(torch.equal(v, ref[name]), f"multiframe restore: {name} differs")
+        a, a2, b = loss_matrix(mods), loss_matrix(mods), loss_matrix(fresh)
+        diff, floor = (a - b).abs().max().item(), (a - a2).abs().max().item()
+        require(diff == 0 or diff <= floor,
+                f"multiframe restore: loss matrix differs by {diff} (run-to-run {floor})")
+        log(f"[multiframe] restore of latest into a fresh build: state equal; loss matrix "
+            f"({tuple(a.shape)}) vs the trained modules max abs diff {diff:.3g} (trained vs "
+            f"itself {floor:.3g})")
+        del fresh
+
+        # one train step's forward + backward, kernels vs plain, from one state
+        state = copy.deepcopy(mods.model.state_dict())
+        mpx_state = copy.deepcopy(mods.mpx.state_dict())
+        flow_fn = multiframe_main.make_flow_fn_from_opts(o, S, device)
+        upload = {key: v for key, v in batch.items() if key != "optical_flows"}
+
+        def one_step(raster_plain, corr_plain, deterministic=True):
+            mods.model.load_state_dict(state)
+            mods.mpx.load_state_dict(mpx_state)
+            mods.model.zero_grad(set_to_none=True)
+            mods.mpx.zero_grad(set_to_none=True)
+            with contextlib.ExitStack() as stack:
+                if deterministic:
+                    stack.enter_context(deterministic_algorithms(torch))
+                if corr_plain:
+                    stack.enter_context(plain_correlation())
+                db = flow_fn(dict(upload))
+                if raster_plain:
+                    stack.enter_context(plain_rasterizer())
+                loss, aux = mf.forward(mods, db, k=k, train=True, drop_deform=True)
+                aux["pred_v"].retain_grad()
+                loss.backward()
+            torch.cuda.synchronize()
+            grads = _mf_grads(mods)
+            grads["pred_v"] = aux["pred_v"].grad.detach().cpu()
+            return aux["loss_matrix"].detach(), aux["probs"], grads
+
+        torch.cuda.reset_peak_memory_stats()
+        runs = {"kernels": one_step(False, False)}
+        peak_step = torch.cuda.max_memory_allocated()
+        runs["kernels again"] = one_step(False, False)
+        runs["kernels, PyTorch's default algorithms"] = one_step(False, False,
+                                                                deterministic=False)
+        runs["plain rasterizer"] = one_step(True, False)
+        runs["plain rasterizer and correlation"] = one_step(True, True)
+        mods.model.load_state_dict(state)
+        mods.mpx.load_state_dict(mpx_state)
+
+        def rel_entries(x, y):
+            return ((x - y).abs() / y.abs().clamp_min(1e-12)).max().item()
+
+        ref = runs["kernels"]
+        errs = {}
+        for name, run in runs.items():
+            if name != "kernels":
+                errs[name] = (rel_entries(run[0], ref[0]), rel_entries(run[1], ref[1]),
+                              *_mf_grad_errors(run[2], ref[2], f"{name} vs kernels",
+                                               float("inf")))
+                log(f"[multiframe] one train step from identical state (k={k}, {k * B * T} "
+                    f"views), {name} vs kernels: loss matrix rel {errs[name][0]:.3g}, probs rel "
+                    f"{errs[name][1]:.3g}, worst gradient rel {errs[name][2][1]:.3g} "
+                    f"({errs[name][2][0]}), {errs[name][3]}")
+        # the solve adjoint's own f32 rounding on mean_v: at zero handle
+        # offsets the exact adjoint maps pred_v's gradient to its sum over views
+        with torch.enable_grad():
+            m = mods.model.get_mean_shape().detach().requires_grad_(True)
+            v = mf.screened_poisson_solve(
+                m, mods.model.get_lbs().detach(),
+                torch.zeros(B * T, mods.template.num_lbs, 3, device=device),
+                mf.cot_laplacian(m.detach(), mods.cot))
+            (g_solve,) = torch.autograd.grad(v, m, ref[2]["pred_v"].to(device))
+        exact = ref[2]["pred_v"].sum(0).to(device)
+        solve_floor = (torch.linalg.vector_norm(g_solve - exact)
+                       / torch.linalg.vector_norm(exact)).item()
+        lm_err, p_err, worst, solve_fed = errs["plain rasterizer and correlation"]
+        log(f"[multiframe] kernels vs plain: {solve_fed} against {SOLVE_FED} (the solve "
+            f"adjoint's own f32 rounding on pred_v's gradient: rel {solve_floor:.3g}); every "
+            f"other gradient within 1e-4, worst {worst[1]:.3g} ({worst[0]})")
+        _mf_grad_errors(runs["plain rasterizer and correlation"][2], ref[2],
+                        "kernels vs plain, held", 1e-4)
+        require(lm_err <= 1e-4, f"multiframe kernels vs plain: loss matrix rel {lm_err} > 1e-4")
+        require(p_err <= 1e-4, f"multiframe kernels vs plain: probs rel {p_err} > 1e-4")
+        log(f"[multiframe] peak memory of the step {peak_step / 2**30:.3f} GiB")
+
+        prof = {}
+        if profile is not None:
+            step = make_train_step(mods, k=k)
+            step(batch)  # warm-up of the step's allocations
+            prof["flow"] = _mf_profile(torch, lambda: flow_fn(dict(upload)),
+                                       f"one flow call ({B} pairs, net {net_hw})", profile)
+            prof["train"] = _mf_profile(torch, lambda: step(batch),
+                                        f"one train step (k={k}, {k * B * T} views)", profile)
+            proj = captured["train"]  # the first train step's projected views
+            K = rc.auto_K(mods.faces.shape[0], S, ras.DEFAULT_K)
+            bin_ms = {m: time_cuda(lambda: rc.bin_faces(proj, mods.faces, S, K, blur), 5)
+                      for m, blur in (("soft", rc.BLUR_RADIUS), ("hard", 0.0))}
+            log(f"[multiframe] bin pass alone at the step's {proj.shape[0]} views: "
+                + json.dumps(bin_ms) + " ms")
+            prof["bin_ms"] = bin_ms
+            if mods.lpips is not None:
+                from acfm_video_3d_reconstruction_tpu_torch.models.lpips import (
+                    perceptual_texture_loss)
+
+                n = 2 * k * B * T  # [rendered; mirrored] textures of every view
+                g = torch.Generator(device=device).manual_seed(6)
+                x = torch.rand(n, S, S, 3, device=device, generator=g, requires_grad=True)
+                y = torch.rand(n, S, S, 3, device=device, generator=g)
+                m = (torch.rand(n, S, S, device=device, generator=g) > 0.5).float()
+
+                def lpips_step():
+                    perceptual_texture_loss(mods.lpips, x, y, m, reduce=False).sum().backward()
+
+                prof["lpips_ms"] = time_cuda(lpips_step, 3)
+                log(f"[multiframe] LPIPS alone, forward and input backward over the step's {n} "
+                    f"images: {prof['lpips_ms']:.3f} ms")
+        kernels = _mf_kernels(torch, captured["train"], mods.faces, S, net_hw, B)
+    log(f"[multiframe] phase {time.perf_counter() - t_phase:.2f} s")
+    return {"launches": launches, "warmup_steps": n_w, "train_steps": n_t,
+            "time_per_iter_train": [r["time_per_iter"] for r in main_recs],
+            "peak_run_gib": peak_run / 2**30, "peak_step_gib": peak_step / 2**30,
+            "overflow": overflow, "profile": prof, "kernels": kernels}
+
+
 def _flow_shapes(net_hw):
     """The cost volume's distinct (md, C, H, W) of one pass of the net at
     net_hw, finest last per md, with its launches per two-stage pass:
@@ -909,6 +1360,19 @@ def phase_flow_small(torch, device):
 
 
 @contextlib.contextmanager
+def deterministic_algorithms(torch):
+    """Within the block PyTorch's ops take their deterministic versions
+    where they have one (the index and scatter backwards sum in a fixed
+    order instead of with atomics; cuDNN picks deterministic algorithms);
+    the rest warn and run as they are."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@contextlib.contextmanager
 def plain_correlation():
     """Within the block the cost volume runs correlation_plain on CUDA
     tensors too (no kernel launch, no count): the flow path's reference."""
@@ -1005,8 +1469,8 @@ def phase_flow(torch, device, profile):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
-                    help="append torch.profiler tables of one eval step, one train step and "
-                    "one make_flow_fn call here")
+                    help="append torch.profiler tables of one eval step, one train step, one "
+                    "make_flow_fn call and one multiframe flow call and train step here")
     args = ap.parse_args(argv)
 
     import torch
@@ -1047,6 +1511,7 @@ def main(argv=None) -> int:
     records += phase_flow_kernels(torch, device)
     phase_flow_small(torch, device)
     flow_pps, flow_spread, flow_launches = phase_flow(torch, device, args.profile)
+    multiframe = phase_multiframe(torch, device, card, args.profile)
 
     counter = {"raster_fwd_soft": "soft", "raster_fwd_hard": "hard",
                "raster_bwd_soft": "soft_bwd", "correlation_md4": "corr_md4",
@@ -1054,7 +1519,8 @@ def main(argv=None) -> int:
     for r in records:
         r["launches"] = sum(launches[counter[r["name"]]]
                             for launches in (eval_launches, train_launches, flow_launches,
-                                             driver["train_launches"], driver["eval_launches"]))
+                                             driver["train_launches"], driver["eval_launches"],
+                                             multiframe["launches"]))
     n_eval, n_train = EVAL_WINDOWS * EVAL_STEPS, TRAIN_WINDOWS * TRAIN_STEPS
     n_flow = FLOW_WINDOWS * FLOW_CALLS
     log("[result] " + json.dumps({
@@ -1068,7 +1534,13 @@ def main(argv=None) -> int:
         "flow_pairs_per_call": FLOW_B, "flow_net_hw": FLOW_NET_HW, "flow_calls": n_flow,
         "launches_per_eval_step": {k: v / n_eval for k, v in eval_launches.items()},
         "launches_per_train_step": {k: v / n_train for k, v in train_launches.items()},
-        "launches_per_flow_call": {k: v / n_flow for k, v in flow_launches.items()}}))
+        "launches_per_flow_call": {k: v / n_flow for k, v in flow_launches.items()},
+        "multiframe_warmup_steps": multiframe["warmup_steps"],
+        "multiframe_train_steps": multiframe["train_steps"],
+        "multiframe_launches": multiframe["launches"],
+        "multiframe_time_per_iter_train": multiframe["time_per_iter_train"],
+        "multiframe_peak_run_gib": multiframe["peak_run_gib"],
+        "multiframe_peak_step_gib": multiframe["peak_step_gib"]}))
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -406,12 +406,14 @@ class TestCullWindows:
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, imports without JAX, flax,
-    orbax, absl or the JAX package; importing chip_smoke loads neither PIL
-    nor cv2 (the data path imports them where it reads or resizes)."""
+    """Every module of the port, chip_smoke.py and the fixture writers of
+    tools/ import without JAX, flax, orbax, absl or the JAX package;
+    importing chip_smoke loads neither PIL nor cv2 (the data path imports
+    them where it reads or resizes)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import chip_smoke\n"
+        "import tools.tigdog_fixture, tools.cub_fixture\n"
         "host = [k for k in sys.modules if k.split('.')[0] in ('PIL', 'cv2')]\n"
         "assert not host, host\n"
         "import acfm_video_3d_reconstruction_tpu_torch as p\n"
