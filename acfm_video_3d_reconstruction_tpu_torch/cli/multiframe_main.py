@@ -13,10 +13,11 @@ Usage:
       --name horse_net --category horse --root_dir <TigDog_pkls> \\
       --warmup --init_camera_emb --flow_checkpoint weights/maskflownet.pth
 
+--display_freq N writes an image panel every N main-loop steps to
+<checkpoint_dir>/<name>/vis/ (train/visualize.py::make_multiframe_vis_fn).
 Not ported yet, and refused with an error naming what is missing: the
 PASCAL and ImageNet mixes (--expand_pascal, --expand_imgnet: data/pascal.py,
-data/objects.py) and the visualisation panels (--display_freq > 0:
-train/visualize.py::make_multiframe_vis_fn).
+data/objects.py).
 """
 from __future__ import annotations
 
@@ -123,9 +124,10 @@ _FLAGS = [
 ]
 
 
-def parse(argv=None) -> argparse.Namespace:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    for name, default, doc in _FLAGS:
+def parse(argv=None, extra=(), description=None) -> argparse.Namespace:
+    """The training flags (and `extra`, more (name, default, help) triples)."""
+    ap = argparse.ArgumentParser(description=description or __doc__.splitlines()[0])
+    for name, default, doc in _FLAGS + list(extra):
         if isinstance(default, bool):
             ap.add_argument(f"--{name}", type=str2bool, nargs="?", const=True,
                             default=default, help=doc)
@@ -254,10 +256,6 @@ def build_video_dataset(o: dict):
 
 def train(o: dict):
     """Full multiframe training from an options dict; returns the modules."""
-    if o["display_freq"] > 0:
-        raise NotImplementedError(
-            "--display_freq > 0 needs train/visualize.py::make_multiframe_vis_fn, which the "
-            "PyTorch port does not have yet")
     device = check_device(SimpleNamespace(device=o.get("device", "cuda")))
     if device.type == "cuda":
         # f32 throughout: the solve's Cholesky needs full-precision matmuls

@@ -191,9 +191,11 @@ def safe_norm(x: torch.Tensor, dim=-1, keepdim: bool = False,
     gradient exactly 0 at the degenerate point (a collapsed edge under a
     large deformation would otherwise give 0 * NaN). torch.maximum splits
     the gradient at sum sq == eps^2 as jnp.maximum does; clamp would not.
+    The floor is filled on the device (`new_tensor` would upload it from
+    the host and wait for the stream).
     """
     sq = (x * x).sum(dim=dim, keepdim=keepdim)
-    return torch.sqrt(torch.maximum(sq, sq.new_tensor(eps * eps)))
+    return torch.sqrt(torch.maximum(sq, sq.new_full((), eps * eps)))
 
 
 def uniform_laplacian_smoothing(verts: torch.Tensor, L: torch.Tensor) -> torch.Tensor:

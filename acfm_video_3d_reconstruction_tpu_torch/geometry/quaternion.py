@@ -1,9 +1,14 @@
 """Quaternion utilities (w, x, y, z convention) on torch tensors.
 
 Counterpart of acfm_video_3d_reconstruction_tpu/geometry/quaternion.py:
-the functions the camera model, the camera decoders and the camera loss
-need. All broadcast
-over leading batch dims; quaternions live in the trailing axis of size 4.
+the functions the camera model, the camera decoders, the camera loss and
+the gauge alignment need. All broadcast over leading batch dims;
+quaternions live in the trailing axis of size 4.
+
+No function here copies a host constant to the device (`new_tensor` of a
+list blocks the host until the stream drains): constants are built with
+`new_full` or by indexing, so the TTO loop, which projects through
+quat_rotate several times an iteration, queues without waiting.
 """
 from __future__ import annotations
 
@@ -27,13 +32,13 @@ def hamilton_product(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
     """Conjugate: negate the vector part."""
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Unit-normalize along the last axis, finite gradient at q == 0."""
     sq = (q * q).sum(-1, keepdim=True)
-    n = torch.sqrt(torch.maximum(sq, sq.new_tensor(eps * eps)))
+    n = torch.sqrt(torch.maximum(sq, sq.new_full((), eps * eps)))
     return q / n
 
 
@@ -67,5 +72,50 @@ def mirror_quat(q: torch.Tensor) -> torch.Tensor:
     q' = quat(diag(-1,1,-1)) ⊗ standardize(q), where the mirror quaternion
     is (0, 0, 1, 0)."""
     q = standardize_quaternion(q)
-    mirror = q.new_tensor([0.0, 0.0, 1.0, 0.0]).expand_as(q)
+    mirror = torch.zeros_like(q)
+    mirror[..., 2] = 1.0
     return hamilton_product(mirror, q)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) -> rotation matrix (..., 3, 3)."""
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    m = torch.stack(
+        [
+            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4), w >= 0.
+
+    Shepperd's selection without branches: four candidate (unnormalized)
+    quaternions, one per dominant component, the one of the largest score
+    taken (argmax keeps the first of equal scores, as jnp.argmax does, so
+    the candidates keep the JAX package's order), then normalized and
+    standardized.
+    """
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 + m11 - m00 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 + m22 - m00 - m11], dim=-1)
+    scores = torch.stack(
+        [1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 + m11 - m00 - m22, 1.0 + m22 - m00 - m11],
+        dim=-1,
+    )
+    idx = torch.argmax(scores, dim=-1)
+    cand = torch.stack([qw, qx, qy, qz], dim=-2)  # (..., 4 candidates, 4 components)
+    q = torch.take_along_dim(cand, idx[..., None, None], dim=-2)[..., 0, :]
+    return standardize_quaternion(quat_normalize(q))

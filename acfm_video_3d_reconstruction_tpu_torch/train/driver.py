@@ -158,6 +158,7 @@ def run_multiframe_training(
     flow_fn=None,
     load_pretrained=None,
     load_lpips=None,
+    vis_fn=None,
     load_warmup: bool = False,
     device: str | torch.device = "cuda",
 ):
@@ -173,7 +174,10 @@ def run_multiframe_training(
     loss weight is nonzero. It runs on the prefetch thread after the upload,
     so its launches go to the same (default) stream as the steps', ahead of
     the step that reads the batch. load_pretrained(model) / load_lpips(lpips):
-    optional weight loaders applied to the built modules. Returns the modules.
+    optional weight loaders applied to the built modules. vis_fn(save_dir,
+    step, batch): image panels every cfg.train.display_freq main-loop steps
+    (train/visualize.py::make_multiframe_vis_fn when display_freq > 0 and
+    none is given). Returns the modules.
     """
     tr = cfg.train
     mp = cfg.multiplex
@@ -185,6 +189,10 @@ def run_multiframe_training(
         )
     mods = mf.build(cfg, template, num_frames_total, seed=tr.seed,
                     steps_per_epoch=len(loader), device=device)
+    if vis_fn is None and tr.display_freq > 0:
+        from . import visualize
+
+        vis_fn = visualize.make_multiframe_vis_fn(mods)
     if load_pretrained is not None:
         load_pretrained(mods.model)
     if load_lpips is not None:
@@ -266,6 +274,8 @@ def run_multiframe_training(
                 logger.log(epoch, total_steps, metrics)
             if tr.save_latest_freq > 0 and total_steps % tr.save_latest_freq == 0:
                 save("latest")
+            if vis_fn is not None and tr.display_freq > 0 and total_steps % tr.display_freq == 0:
+                vis_fn(save_dir, total_steps, db)
         if (epoch + 1) % tr.save_epoch_freq == 0:
             save("latest")
             save(epoch + 1)

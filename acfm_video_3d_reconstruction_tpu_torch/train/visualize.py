@@ -5,8 +5,7 @@ Counterpart of acfm_video_3d_reconstruction_tpu/train/visualize.py
 display_current_results, multiframe/main.py:775-923,
 utils/visualizer.py:27-119): every display_freq steps, write a PNG panel of
 [input+kps | GT mask | predicted mask] rows and a vertex scatter to
-<save_dir>/vis/, through the driver's vis_fn hook. The multiframe panel
-(make_multiframe_vis_fn) is not ported yet.
+<save_dir>/vis/, through the driver's vis_fn hook (both drivers).
 """
 from __future__ import annotations
 
@@ -98,5 +97,48 @@ def make_monocular_vis_fn(mods):
         out = osp.join(save_dir, "vis")
         os.makedirs(out, exist_ok=True)
         vis_utils.save_image(osp.join(out, f"step_{step:07d}.png"), panel)
+
+    return vis_fn
+
+
+def make_multiframe_vis_fn(mods):
+    """vis_fn(save_dir, step, batch) for run_multiframe_training: the
+    regressed-camera prediction of the batch's frames (the encoder in eval
+    mode, the solve, one soft rasterization), drawn as render_row beside a
+    vertex scatter (panel layout of reference multiframe/main.py:775-855)."""
+    import torch
+
+    from ..deform.solve import screened_poisson_solve
+    from ..geometry import camera as cam_utils
+    from ..geometry.mesh_ops import cot_laplacian
+    from ..ops import rasterizer as ras
+    from . import monocular as mono
+
+    model = mods.model
+    img_size = mods.cfg.model.img_size
+
+    def vis_fn(save_dir, step, batch):
+        imgs = batch["img"].reshape(-1, img_size, img_size, 3)
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                out = model(mono.normalize_imagenet(imgs))
+                mean_shape = model.get_mean_shape()
+                pred_v = screened_poisson_solve(mean_shape, model.get_lbs(), out["delta_v"],
+                                                cot_laplacian(mean_shape, mods.cot))
+                proj_v = cam_utils.orthographic_proj_withz(pred_v, out["cam_pred"], offset_z=0.0)
+                mask_pred, _ = ras.soft_silhouette(proj_v, mods.faces, img_size)
+        finally:
+            model.train(was_training)
+        panel = render_row(imgs.cpu().numpy(),
+                           batch["mask"].reshape(-1, img_size, img_size).cpu().numpy(),
+                           mask_pred.cpu().numpy())
+        scatter = vert_scatter_panel(pred_v[0].cpu().numpy(), img_size)
+        pad = np.zeros((panel.shape[0] - scatter.shape[0], scatter.shape[1], 3), np.uint8)
+        panel = np.concatenate([panel, np.concatenate([scatter, pad], 0)], 1)
+        out_dir = osp.join(save_dir, "vis")
+        os.makedirs(out_dir, exist_ok=True)
+        vis_utils.save_image(osp.join(out_dir, f"step_{step:07d}.png"), panel)
 
     return vis_fn

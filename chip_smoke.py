@@ -84,6 +84,24 @@ Phases, each of which raises (exit code 1) on failure:
      within 1e-4, mean_v, behind the solve's adjoint, within 1e-3); each
      kernel alone at the step's 128 views and 8 pairs with its bound; with
      --profile, device ms of one flow call and one train step by kind.
+  6b. evaluate: multiframe evaluation as users run it after training, the
+     evaluate CLI's `evaluate` (cli/multiframe_evaluate.py) on phase 6's
+     tree and latest checkpoint at the CLI's defaults, 100 TTO iterations,
+     the flow term on: (a) the test split with TTO, one panel and
+     results.mat; (b) the train split with the argmax-multiplex camera and
+     TTO over the camera too; (c) the gauge-aligned GT cameras without TTO.
+     Exactly N+2 soft, N+1 hard, N soft_bwd and 15 cost volumes per TTO
+     batch, 1 soft per batch without; the TTO lowering the loss on every
+     batch; unit quaternions; the JAX CLI's results.npz keys. Then no
+     synchronizing operation in a TTO call (set_sync_debug_mode), ms per TTO
+     iteration, the kernels against the plain versions from the kernel
+     path's own states (one step from each of 19 of its 100: loss, IoU,
+     gradient, pred_v and camera after the step within 1e-4), the free
+     runs' drift logged (plain, the kernels again, the kernels from a
+     one-ulp change of the input), the CPU tests' small TTO card vs CPU, the
+     panels (make_multiframe_vis_fn, VisRenderer, diff_vp), each kernel
+     alone at the TTO's 16 views with its bound; with --profile, device ms
+     of one TTO iteration by kind.
 The launch counters of every kernel are zeroed just before each main path
 and read just after it.
 The second-to-last lines are the card's name and power limit, then one
@@ -100,6 +118,7 @@ import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -826,6 +845,8 @@ def phase_driver(torch, device, card):
 # MF_VIDEOS clips of MF_FRAMES frames at MF_RAW (tools/tigdog_fixture.py):
 # 32 frames, so 4 steps of batch 8 an epoch
 MF_VIDEOS, MF_FRAMES, MF_RAW = 4, 8, (360, 640)
+# the keypoints a fixture clip keeps (19 less the neck, which the loader drops)
+MF_KPS = 18
 # kernel names of one train step's profile, by kind (first match wins)
 MF_KINDS = (("rasterizer kernels", ("raster_fwd_kernel", "raster_bwd")),
             ("cost volume", ("corr_tile", "corr_split")),
@@ -881,7 +902,7 @@ def _mf_grad_errors(g_a, g_b, what, bound):
         {k: errs[k] for k in SOLVE_FED if k in errs}
 
 
-def _mf_kernels(torch, proj, faces, S, net_hw, nb):
+def _mf_kernels(torch, proj, faces, S, net_hw, nb, tag="multiframe"):
     """Each kernel alone at the multiframe step's shapes, with its bound:
     the rasterizer kernels on the first train step's projected views (their
     C entries on counts and outputs made once, time_cuda), the bytes each
@@ -917,7 +938,7 @@ def _mf_kernels(torch, proj, faces, S, net_hw, nb):
             ms = time_cuda(lambda: rc.launch_fwd(rc.fwd_entry(), table, idx, counts, frags, S,
                                                  th, tw, rc.SIGMA, blur, soft), 10)
         out[mode] = (ms, *_bound(ops, nbytes))
-        log(f"[multiframe] {mode} at {V} views: kernel alone {ms:.4f} ms, bound "
+        log(f"[{tag}] {mode} at {V} views: kernel alone {ms:.4f} ms, bound "
             f"{out[mode][1]:.4f} ms ({out[mode][2]}; {nbytes / 1e6:.1f} MB, {needed} needed "
             f"pairs)")
     fn = cc.entry()
@@ -930,7 +951,7 @@ def _mf_kernels(torch, proj, faces, S, net_hw, nb):
         pass_bound += per_pass * _bound(2 * nb * H * W * C * nd,
                                         4 * (2 * nb * H * W * C + nb * H * W * nd))[0]
     out["cost volume pass"] = (pass_ms, pass_bound, "bytes")
-    log(f"[multiframe] cost volumes of one pass at {nb} pairs (15 launches), alone "
+    log(f"[{tag}] cost volumes of one pass at {nb} pairs (15 launches), alone "
         f"{pass_ms:.4f} ms, bound {pass_bound:.4f} ms (bytes)")
     return out
 
@@ -950,26 +971,32 @@ def _kinds(events) -> dict:
     return out
 
 
-def _mf_profile(torch, call, what, path):
+def _mf_profile(torch, call, what, path, tag="multiframe", host_top=0, trace=None):
     """Device ms of one call by kind (torch.profiler), its 12 largest
-    kernels, appended to `path` when given."""
+    kernels (and its `host_top` largest operators by self host time),
+    appended to `path` when given; the timeline to `trace` when given."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
+    if trace:
+        prof.export_chrome_trace(trace)
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) is not None and "cuda" in str(e.device_type).lower()]
     kinds = _kinds(events)
     total = sum(kinds.values())
     top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total",
                                                 getattr(e, "self_cuda_time_total", 0)))[:12]
-    log(f"[multiframe] profile of {what}: {total:.3f} ms of device time; by kind "
+    log(f"[{tag}] profile of {what}: {total:.3f} ms of device time; by kind "
         + json.dumps({k: round(v, 4) for k, v in kinds.items()}))
     for e in top:
         t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
-        log(f"[multiframe]   {t:9.4f} ms x{e.count:4d}  {e.key[:110]}")
+        log(f"[{tag}]   {t:9.4f} ms x{e.count:4d}  {e.key[:110]}")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:host_top]
+    for e in host:
+        log(f"[{tag}]   host {e.self_cpu_time_total / 1e3:9.4f} ms x{e.count:5d}  {e.key[:100]}")
     if path:
         table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
         with open(path, "a") as fh:
@@ -977,13 +1004,16 @@ def _mf_profile(torch, call, what, path):
     return total, kinds
 
 
-def phase_multiframe(torch, device, card, profile=None, **overrides):
+def phase_multiframe(torch, device, card, tmp, profile=None, **overrides):
     """Multiframe camera-multiplex training as users run it: the CLI's
     `train` (cli/multiframe_main.py) at its defaults, the full-width horse
     model (G 8, B 8, T 2, 256², icosphere subdivide 3, 15 handles, nz_feat
     200, tex 6, texture on, f32 nets, TF32 off), the frozen two-stage
     MaskFlownet at 384x768 with seeded random weights (--flow_random_init),
-    on a TigDog-format tree from tools/tigdog_fixture.py; with --warmup
+    on a TigDog-format tree from tools/tigdog_fixture.py written under
+    `tmp` (the evaluate phase reads it and the checkpoints after), with its
+    keypoint dictionary (--kp_dict: the 18 keypoints a clip keeps, unused
+    by training at kp_loss_wt 0, read by the evaluation); with --warmup
     --num_reps 1 --init_camera_emb, one epoch. `overrides` change options
     (the CPU rehearsal shrinks the model and the flow net).
 
@@ -1010,11 +1040,11 @@ def phase_multiframe(torch, device, card, profile=None, **overrides):
     flow call and of one train step by kind, the bin pass and LPIPS alone.
     """
     import os
-    import tempfile
 
-    from tools.tigdog_fixture import write_tigdog_tree
+    from tools.tigdog_fixture import write_kp_dict, write_tigdog_tree
 
     from acfm_video_3d_reconstruction_tpu_torch.cli import multiframe_main
+    from acfm_video_3d_reconstruction_tpu_torch.geometry.icosphere import icosphere
     from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
     from acfm_video_3d_reconstruction_tpu_torch.flow.infer import NET_H, NET_W
     from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer as ras
@@ -1023,236 +1053,695 @@ def phase_multiframe(torch, device, card, profile=None, **overrides):
     from acfm_video_3d_reconstruction_tpu_torch.train import multiframe as mf
 
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        write_tigdog_tree(os.path.join(tmp, "pkls"), "horse", MF_VIDEOS, MF_FRAMES, MF_RAW)
-        log(f"[multiframe] TigDog tree: {MF_VIDEOS} clips of {MF_FRAMES} frames at "
-            f"{MF_RAW[0]}x{MF_RAW[1]} written in {time.perf_counter() - t0:.2f} s")
-        o = multiframe_main.default_opts()
-        o.update(name="smoke", root_dir=os.path.join(tmp, "pkls"),
-                 tmp_dir=os.path.join(tmp, "cache"), checkpoint_dir=os.path.join(tmp, "snap"),
-                 flow_random_init=True, warmup=True, num_reps=1, init_camera_emb=True,
-                 num_epochs=1, save_epoch_freq=1, log_every=1, device=str(device))
-        o.update(overrides)
-        G, B, T, S = o["num_guesses"], o["batch_size"], o["num_frames"], o["img_size"]
-        net_hw = o.get("flow_net_hw", (NET_H, NET_W))
+    t0 = time.perf_counter()
+    write_tigdog_tree(os.path.join(tmp, "pkls"), "horse", MF_VIDEOS, MF_FRAMES, MF_RAW)
+    log(f"[multiframe] TigDog tree: {MF_VIDEOS} clips of {MF_FRAMES} frames at "
+        f"{MF_RAW[0]}x{MF_RAW[1]} written in {time.perf_counter() - t0:.2f} s")
+    o = multiframe_main.default_opts()
+    o.update(name="smoke", root_dir=os.path.join(tmp, "pkls"),
+             tmp_dir=os.path.join(tmp, "cache"), checkpoint_dir=os.path.join(tmp, "snap"),
+             flow_random_init=True, warmup=True, num_reps=1, init_camera_emb=True,
+             num_epochs=1, save_epoch_freq=1, log_every=1, device=str(device))
+    o.update(overrides)
+    o.update(num_kps=MF_KPS, kp_dict=write_kp_dict(
+        os.path.join(tmp, "kp_dict.pkl"), len(icosphere(o["subdivide"])[0]), MF_KPS))
+    G, B, T, S = o["num_guesses"], o["batch_size"], o["num_frames"], o["img_size"]
+    net_hw = o.get("flow_net_hw", (NET_H, NET_W))
 
-        # bin overflow of the first warm-up and train step's views; the
-        # first train batch and the modules, for the checks after the run
-        overflow, captured = {}, {}
+    # bin overflow of the first warm-up and train step's views; the
+    # first train batch and the modules, for the checks after the run
+    overflow, captured = {}, {}
 
-        def watch(fn, what):
-            def wrapped(verts, faces, *args, **kw):
-                if what not in overflow:
-                    K = rc.auto_K(faces.shape[0], S, ras.DEFAULT_K)
-                    ovf = rc.bin_overflow_counts(verts.detach(), faces, S, K)
-                    overflow[what] = (tuple(verts.shape), K, int(ovf.max()), int((ovf > 0).sum()),
-                                      int(ovf.sum()))
-                    captured[what] = verts.detach()
-                return fn(verts, faces, *args, **kw)
-            return wrapped
+    def watch(fn, what):
+        def wrapped(verts, faces, *args, **kw):
+            if what not in overflow:
+                K = rc.auto_K(faces.shape[0], S, ras.DEFAULT_K)
+                ovf = rc.bin_overflow_counts(verts.detach(), faces, S, K)
+                overflow[what] = (tuple(verts.shape), K, int(ovf.max()), int((ovf > 0).sum()),
+                                  int(ovf.sum()))
+                captured[what] = verts.detach()
+            return fn(verts, faces, *args, **kw)
+        return wrapped
 
-        make_train_step = mf.make_train_step
+    make_train_step = mf.make_train_step
 
-        def capturing_train_step(mods, **kw):
-            step = make_train_step(mods, **kw)
+    def capturing_train_step(mods, **kw):
+        step = make_train_step(mods, **kw)
 
-            def run(batch):
-                captured.setdefault("batch", batch)
-                captured["mods"] = mods
-                return step(batch)
-            return run
+        def run(batch):
+            captured.setdefault("batch", batch)
+            captured["mods"] = mods
+            return step(batch)
+        return run
 
-        swaps = ((ras, "soft_silhouette_vis", watch(ras.soft_silhouette_vis, "warm-up")),
-                 (ras, "soft_silhouette_vis_tex", watch(ras.soft_silhouette_vis_tex, "train")),
-                 (mf, "make_train_step", capturing_train_step))
-        saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
-        for m, n, f in swaps:
-            setattr(m, n, f)
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            zero_launches()
-            t0 = time.perf_counter()
-            mods = multiframe_main.train(o)
-            torch.cuda.synchronize()
-            t_train = time.perf_counter() - t0
-            launches = read_launches()
-        finally:
-            for m, n, f in saved:
-                setattr(m, n, f)
-        peak_run = torch.cuda.max_memory_allocated()
-        save_dir = os.path.join(o["checkpoint_dir"], "smoke")
-        with open(os.path.join(save_dir, "metrics.jsonl")) as fh:
-            recs = [json.loads(line) for line in fh if line.strip()]
-        warm = [r for r in recs if "warmup_loss" in r]
-        main_recs = [r for r in recs if "total_loss" in r]
-        n_w, n_t = len(warm), len(main_recs)
-        require(n_w > 0 and n_t > 0 and n_w + n_t == len(recs),
-                f"multiframe: {n_w} warm-up and {n_t} train records of {len(recs)}")
-        for r in recs:
-            bad = [k for k, v in r.items() if not np.isfinite(v)]
-            require(not bad, f"multiframe: non-finite {bad} at step {r['step']}")
-        for label in ("warmup", "latest", 1):
-            require(checkpoints.exists(o["checkpoint_dir"], "smoke", label),
-                    f"multiframe: checkpoint {label} not written")
-        n_b = n_w + n_t
-        require(launches == only(soft=n_b, hard=n_t, soft_bwd=n_b, corr_md4=5 * n_b,
-                                 corr_md2=10 * n_b),
-                f"multiframe launches {launches} != per warm-up step 1 soft + 1 soft_bwd, per "
-                f"train step 1 soft + 1 hard + 1 soft_bwd, per batch 15 cost volumes "
-                f"({n_w} warm-up and {n_t} train steps)")
-        require(main_recs[0]["of_loss"] > 0, "multiframe: of_loss is zero")
-        log(f"[multiframe] train (CLI defaults G={G} B={B} T={T} {S}^2, "
-            f"{mods.template.num_verts} verts, {mods.template.num_faces} faces, flow net "
-            f"{net_hw}): {n_w} warm-up + {n_t} train steps in {t_train:.2f} s (build, fixture "
-            f"cache, init pass and saves included); launches {launches}; per warm-up step "
-            f"1 soft + 1 soft_bwd, per train step 1 soft + 1 hard + 1 soft_bwd, 15 cost volumes "
-            f"per batch; peak memory of the run {peak_run / 2**30:.3f} GiB; card {card}")
-        log(f"[multiframe] bin_overflow_counts (views shape, K, max per bin, bins over, faces "
-            f"dropped): {json.dumps(overflow)}")
-        log("[multiframe] time_per_iter warm-up " + json.dumps([r["time_per_iter"] for r in warm])
-            + ", train " + json.dumps([r["time_per_iter"] for r in main_recs]))
-        log("[multiframe] first train record " + json.dumps(main_recs[0]))
-        for md, C, H, W, per_pass in _flow_shapes(net_hw):
-            log(f"[multiframe] launch_plan md={md} {B}x{C}x{H}x{W} (x{per_pass}): "
-                f"{cc.launch_plan(B, C, H, W, md)}")
-
-        batch, mods = captured["batch"], captured["mods"]
-        k = G  # drop_hypothesis is off: every hypothesis, every epoch
-
-        def loss_matrix(m):
-            with torch.no_grad():
-                return mf.forward(m, batch, k=k, train=False)[1]["loss_matrix"]
-
-        fresh = mf.build(mods.cfg, mods.template, mods.mpx.probs.shape[0], seed=1,
-                         device=device)
-        step_count = checkpoints.restore_multiframe(o["checkpoint_dir"], "smoke", "latest",
-                                                    fresh)
-        require(step_count == n_b, f"multiframe restore: step {step_count} != {n_b}")
-        for mine, theirs in ((mods.model, fresh.model), (mods.mpx, fresh.mpx)):
-            ref = mine.state_dict()
-            for name, v in theirs.state_dict().items():
-                require(torch.equal(v, ref[name]), f"multiframe restore: {name} differs")
-        a, a2, b = loss_matrix(mods), loss_matrix(mods), loss_matrix(fresh)
-        diff, floor = (a - b).abs().max().item(), (a - a2).abs().max().item()
-        require(diff == 0 or diff <= floor,
-                f"multiframe restore: loss matrix differs by {diff} (run-to-run {floor})")
-        log(f"[multiframe] restore of latest into a fresh build: state equal; loss matrix "
-            f"({tuple(a.shape)}) vs the trained modules max abs diff {diff:.3g} (trained vs "
-            f"itself {floor:.3g})")
-        del fresh
-
-        # one train step's forward + backward, kernels vs plain, from one state
-        state = copy.deepcopy(mods.model.state_dict())
-        mpx_state = copy.deepcopy(mods.mpx.state_dict())
-        flow_fn = multiframe_main.make_flow_fn_from_opts(o, S, device)
-        upload = {key: v for key, v in batch.items() if key != "optical_flows"}
-
-        def one_step(raster_plain, corr_plain, deterministic=True):
-            mods.model.load_state_dict(state)
-            mods.mpx.load_state_dict(mpx_state)
-            mods.model.zero_grad(set_to_none=True)
-            mods.mpx.zero_grad(set_to_none=True)
-            with contextlib.ExitStack() as stack:
-                if deterministic:
-                    stack.enter_context(deterministic_algorithms(torch))
-                if corr_plain:
-                    stack.enter_context(plain_correlation())
-                db = flow_fn(dict(upload))
-                if raster_plain:
-                    stack.enter_context(plain_rasterizer())
-                loss, aux = mf.forward(mods, db, k=k, train=True, drop_deform=True)
-                aux["pred_v"].retain_grad()
-                loss.backward()
-            torch.cuda.synchronize()
-            grads = _mf_grads(mods)
-            grads["pred_v"] = aux["pred_v"].grad.detach().cpu()
-            return aux["loss_matrix"].detach(), aux["probs"], grads
-
+    swaps = ((ras, "soft_silhouette_vis", watch(ras.soft_silhouette_vis, "warm-up")),
+             (ras, "soft_silhouette_vis_tex", watch(ras.soft_silhouette_vis_tex, "train")),
+             (mf, "make_train_step", capturing_train_step))
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
         torch.cuda.reset_peak_memory_stats()
-        runs = {"kernels": one_step(False, False)}
-        peak_step = torch.cuda.max_memory_allocated()
-        runs["kernels again"] = one_step(False, False)
-        runs["kernels, PyTorch's default algorithms"] = one_step(False, False,
-                                                                deterministic=False)
-        runs["plain rasterizer"] = one_step(True, False)
-        runs["plain rasterizer and correlation"] = one_step(True, True)
+        zero_launches()
+        t0 = time.perf_counter()
+        mods = multiframe_main.train(o)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    peak_run = torch.cuda.max_memory_allocated()
+    save_dir = os.path.join(o["checkpoint_dir"], "smoke")
+    with open(os.path.join(save_dir, "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh if line.strip()]
+    warm = [r for r in recs if "warmup_loss" in r]
+    main_recs = [r for r in recs if "total_loss" in r]
+    n_w, n_t = len(warm), len(main_recs)
+    require(n_w > 0 and n_t > 0 and n_w + n_t == len(recs),
+            f"multiframe: {n_w} warm-up and {n_t} train records of {len(recs)}")
+    for r in recs:
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        require(not bad, f"multiframe: non-finite {bad} at step {r['step']}")
+    for label in ("warmup", "latest", 1):
+        require(checkpoints.exists(o["checkpoint_dir"], "smoke", label),
+                f"multiframe: checkpoint {label} not written")
+    n_b = n_w + n_t
+    require(launches == only(soft=n_b, hard=n_t, soft_bwd=n_b, corr_md4=5 * n_b,
+                             corr_md2=10 * n_b),
+            f"multiframe launches {launches} != per warm-up step 1 soft + 1 soft_bwd, per "
+            f"train step 1 soft + 1 hard + 1 soft_bwd, per batch 15 cost volumes "
+            f"({n_w} warm-up and {n_t} train steps)")
+    require(main_recs[0]["of_loss"] > 0, "multiframe: of_loss is zero")
+    log(f"[multiframe] train (CLI defaults G={G} B={B} T={T} {S}^2, "
+        f"{mods.template.num_verts} verts, {mods.template.num_faces} faces, flow net "
+        f"{net_hw}): {n_w} warm-up + {n_t} train steps in {t_train:.2f} s (build, fixture "
+        f"cache, init pass and saves included); launches {launches}; per warm-up step "
+        f"1 soft + 1 soft_bwd, per train step 1 soft + 1 hard + 1 soft_bwd, 15 cost volumes "
+        f"per batch; peak memory of the run {peak_run / 2**30:.3f} GiB; card {card}")
+    log(f"[multiframe] bin_overflow_counts (views shape, K, max per bin, bins over, faces "
+        f"dropped): {json.dumps(overflow)}")
+    log("[multiframe] time_per_iter warm-up " + json.dumps([r["time_per_iter"] for r in warm])
+        + ", train " + json.dumps([r["time_per_iter"] for r in main_recs]))
+    log("[multiframe] first train record " + json.dumps(main_recs[0]))
+    for md, C, H, W, per_pass in _flow_shapes(net_hw):
+        log(f"[multiframe] launch_plan md={md} {B}x{C}x{H}x{W} (x{per_pass}): "
+            f"{cc.launch_plan(B, C, H, W, md)}")
+
+    batch, mods = captured["batch"], captured["mods"]
+    k = G  # drop_hypothesis is off: every hypothesis, every epoch
+
+    def loss_matrix(m):
+        with torch.no_grad():
+            return mf.forward(m, batch, k=k, train=False)[1]["loss_matrix"]
+
+    fresh = mf.build(mods.cfg, mods.template, mods.mpx.probs.shape[0], seed=1,
+                     device=device)
+    step_count = checkpoints.restore_multiframe(o["checkpoint_dir"], "smoke", "latest",
+                                                fresh)
+    require(step_count == n_b, f"multiframe restore: step {step_count} != {n_b}")
+    for mine, theirs in ((mods.model, fresh.model), (mods.mpx, fresh.mpx)):
+        ref = mine.state_dict()
+        for name, v in theirs.state_dict().items():
+            require(torch.equal(v, ref[name]), f"multiframe restore: {name} differs")
+    a, a2, b = loss_matrix(mods), loss_matrix(mods), loss_matrix(fresh)
+    diff, floor = (a - b).abs().max().item(), (a - a2).abs().max().item()
+    require(diff == 0 or diff <= floor,
+            f"multiframe restore: loss matrix differs by {diff} (run-to-run {floor})")
+    log(f"[multiframe] restore of latest into a fresh build: state equal; loss matrix "
+        f"({tuple(a.shape)}) vs the trained modules max abs diff {diff:.3g} (trained vs "
+        f"itself {floor:.3g})")
+    del fresh
+
+    # one train step's forward + backward, kernels vs plain, from one state
+    state = copy.deepcopy(mods.model.state_dict())
+    mpx_state = copy.deepcopy(mods.mpx.state_dict())
+    flow_fn = multiframe_main.make_flow_fn_from_opts(o, S, device)
+    upload = {key: v for key, v in batch.items() if key != "optical_flows"}
+
+    def one_step(raster_plain, corr_plain, deterministic=True):
         mods.model.load_state_dict(state)
         mods.mpx.load_state_dict(mpx_state)
+        mods.model.zero_grad(set_to_none=True)
+        mods.mpx.zero_grad(set_to_none=True)
+        with contextlib.ExitStack() as stack:
+            if deterministic:
+                stack.enter_context(deterministic_algorithms(torch))
+            if corr_plain:
+                stack.enter_context(plain_correlation())
+            db = flow_fn(dict(upload))
+            if raster_plain:
+                stack.enter_context(plain_rasterizer())
+            loss, aux = mf.forward(mods, db, k=k, train=True, drop_deform=True)
+            aux["pred_v"].retain_grad()
+            loss.backward()
+        torch.cuda.synchronize()
+        grads = _mf_grads(mods)
+        grads["pred_v"] = aux["pred_v"].grad.detach().cpu()
+        return aux["loss_matrix"].detach(), aux["probs"], grads
 
-        def rel_entries(x, y):
-            return ((x - y).abs() / y.abs().clamp_min(1e-12)).max().item()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {"kernels": one_step(False, False)}
+    peak_step = torch.cuda.max_memory_allocated()
+    runs["kernels again"] = one_step(False, False)
+    runs["kernels, PyTorch's default algorithms"] = one_step(False, False,
+                                                            deterministic=False)
+    runs["plain rasterizer"] = one_step(True, False)
+    runs["plain rasterizer and correlation"] = one_step(True, True)
+    mods.model.load_state_dict(state)
+    mods.mpx.load_state_dict(mpx_state)
 
-        ref = runs["kernels"]
-        errs = {}
-        for name, run in runs.items():
-            if name != "kernels":
-                errs[name] = (rel_entries(run[0], ref[0]), rel_entries(run[1], ref[1]),
-                              *_mf_grad_errors(run[2], ref[2], f"{name} vs kernels",
-                                               float("inf")))
-                log(f"[multiframe] one train step from identical state (k={k}, {k * B * T} "
-                    f"views), {name} vs kernels: loss matrix rel {errs[name][0]:.3g}, probs rel "
-                    f"{errs[name][1]:.3g}, worst gradient rel {errs[name][2][1]:.3g} "
-                    f"({errs[name][2][0]}), {errs[name][3]}")
-        # the solve adjoint's own f32 rounding on mean_v: at zero handle
-        # offsets the exact adjoint maps pred_v's gradient to its sum over views
-        with torch.enable_grad():
-            m = mods.model.get_mean_shape().detach().requires_grad_(True)
-            v = mf.screened_poisson_solve(
-                m, mods.model.get_lbs().detach(),
-                torch.zeros(B * T, mods.template.num_lbs, 3, device=device),
-                mf.cot_laplacian(m.detach(), mods.cot))
-            (g_solve,) = torch.autograd.grad(v, m, ref[2]["pred_v"].to(device))
-        exact = ref[2]["pred_v"].sum(0).to(device)
-        solve_floor = (torch.linalg.vector_norm(g_solve - exact)
-                       / torch.linalg.vector_norm(exact)).item()
-        lm_err, p_err, worst, solve_fed = errs["plain rasterizer and correlation"]
-        log(f"[multiframe] kernels vs plain: {solve_fed} against {SOLVE_FED} (the solve "
-            f"adjoint's own f32 rounding on pred_v's gradient: rel {solve_floor:.3g}); every "
-            f"other gradient within 1e-4, worst {worst[1]:.3g} ({worst[0]})")
-        _mf_grad_errors(runs["plain rasterizer and correlation"][2], ref[2],
-                        "kernels vs plain, held", 1e-4)
-        require(lm_err <= 1e-4, f"multiframe kernels vs plain: loss matrix rel {lm_err} > 1e-4")
-        require(p_err <= 1e-4, f"multiframe kernels vs plain: probs rel {p_err} > 1e-4")
-        log(f"[multiframe] peak memory of the step {peak_step / 2**30:.3f} GiB")
+    def rel_entries(x, y):
+        return ((x - y).abs() / y.abs().clamp_min(1e-12)).max().item()
 
-        prof = {}
-        if profile is not None:
-            step = make_train_step(mods, k=k)
-            step(batch)  # warm-up of the step's allocations
-            prof["flow"] = _mf_profile(torch, lambda: flow_fn(dict(upload)),
-                                       f"one flow call ({B} pairs, net {net_hw})", profile)
-            prof["train"] = _mf_profile(torch, lambda: step(batch),
-                                        f"one train step (k={k}, {k * B * T} views)", profile)
-            proj = captured["train"]  # the first train step's projected views
-            K = rc.auto_K(mods.faces.shape[0], S, ras.DEFAULT_K)
-            bin_ms = {m: time_cuda(lambda: rc.bin_faces(proj, mods.faces, S, K, blur), 5)
-                      for m, blur in (("soft", rc.BLUR_RADIUS), ("hard", 0.0))}
-            log(f"[multiframe] bin pass alone at the step's {proj.shape[0]} views: "
-                + json.dumps(bin_ms) + " ms")
-            prof["bin_ms"] = bin_ms
-            if mods.lpips is not None:
-                from acfm_video_3d_reconstruction_tpu_torch.models.lpips import (
-                    perceptual_texture_loss)
+    ref = runs["kernels"]
+    errs = {}
+    for name, run in runs.items():
+        if name != "kernels":
+            errs[name] = (rel_entries(run[0], ref[0]), rel_entries(run[1], ref[1]),
+                          *_mf_grad_errors(run[2], ref[2], f"{name} vs kernels",
+                                           float("inf")))
+            log(f"[multiframe] one train step from identical state (k={k}, {k * B * T} "
+                f"views), {name} vs kernels: loss matrix rel {errs[name][0]:.3g}, probs rel "
+                f"{errs[name][1]:.3g}, worst gradient rel {errs[name][2][1]:.3g} "
+                f"({errs[name][2][0]}), {errs[name][3]}")
+    # the solve adjoint's own f32 rounding on mean_v: at zero handle
+    # offsets the exact adjoint maps pred_v's gradient to its sum over views
+    with torch.enable_grad():
+        m = mods.model.get_mean_shape().detach().requires_grad_(True)
+        v = mf.screened_poisson_solve(
+            m, mods.model.get_lbs().detach(),
+            torch.zeros(B * T, mods.template.num_lbs, 3, device=device),
+            mf.cot_laplacian(m.detach(), mods.cot))
+        (g_solve,) = torch.autograd.grad(v, m, ref[2]["pred_v"].to(device))
+    exact = ref[2]["pred_v"].sum(0).to(device)
+    solve_floor = (torch.linalg.vector_norm(g_solve - exact)
+                   / torch.linalg.vector_norm(exact)).item()
+    lm_err, p_err, worst, solve_fed = errs["plain rasterizer and correlation"]
+    log(f"[multiframe] kernels vs plain: {solve_fed} against {SOLVE_FED} (the solve "
+        f"adjoint's own f32 rounding on pred_v's gradient: rel {solve_floor:.3g}); every "
+        f"other gradient within 1e-4, worst {worst[1]:.3g} ({worst[0]})")
+    _mf_grad_errors(runs["plain rasterizer and correlation"][2], ref[2],
+                    "kernels vs plain, held", 1e-4)
+    require(lm_err <= 1e-4, f"multiframe kernels vs plain: loss matrix rel {lm_err} > 1e-4")
+    require(p_err <= 1e-4, f"multiframe kernels vs plain: probs rel {p_err} > 1e-4")
+    log(f"[multiframe] peak memory of the step {peak_step / 2**30:.3f} GiB")
 
-                n = 2 * k * B * T  # [rendered; mirrored] textures of every view
-                g = torch.Generator(device=device).manual_seed(6)
-                x = torch.rand(n, S, S, 3, device=device, generator=g, requires_grad=True)
-                y = torch.rand(n, S, S, 3, device=device, generator=g)
-                m = (torch.rand(n, S, S, device=device, generator=g) > 0.5).float()
+    prof = {}
+    if profile is not None:
+        step = make_train_step(mods, k=k)
+        step(batch)  # warm-up of the step's allocations
+        prof["flow"] = _mf_profile(torch, lambda: flow_fn(dict(upload)),
+                                   f"one flow call ({B} pairs, net {net_hw})", profile)
+        prof["train"] = _mf_profile(torch, lambda: step(batch),
+                                    f"one train step (k={k}, {k * B * T} views)", profile)
+        proj = captured["train"]  # the first train step's projected views
+        K = rc.auto_K(mods.faces.shape[0], S, ras.DEFAULT_K)
+        bin_ms = {m: time_cuda(lambda: rc.bin_faces(proj, mods.faces, S, K, blur), 5)
+                  for m, blur in (("soft", rc.BLUR_RADIUS), ("hard", 0.0))}
+        log(f"[multiframe] bin pass alone at the step's {proj.shape[0]} views: "
+            + json.dumps(bin_ms) + " ms")
+        prof["bin_ms"] = bin_ms
+        if mods.lpips is not None:
+            from acfm_video_3d_reconstruction_tpu_torch.models.lpips import (
+                perceptual_texture_loss)
 
-                def lpips_step():
-                    perceptual_texture_loss(mods.lpips, x, y, m, reduce=False).sum().backward()
+            n = 2 * k * B * T  # [rendered; mirrored] textures of every view
+            g = torch.Generator(device=device).manual_seed(6)
+            x = torch.rand(n, S, S, 3, device=device, generator=g, requires_grad=True)
+            y = torch.rand(n, S, S, 3, device=device, generator=g)
+            m = (torch.rand(n, S, S, device=device, generator=g) > 0.5).float()
 
-                prof["lpips_ms"] = time_cuda(lpips_step, 3)
-                log(f"[multiframe] LPIPS alone, forward and input backward over the step's {n} "
-                    f"images: {prof['lpips_ms']:.3f} ms")
-        kernels = _mf_kernels(torch, captured["train"], mods.faces, S, net_hw, B)
+            def lpips_step():
+                perceptual_texture_loss(mods.lpips, x, y, m, reduce=False).sum().backward()
+
+            prof["lpips_ms"] = time_cuda(lpips_step, 3)
+            log(f"[multiframe] LPIPS alone, forward and input backward over the step's {n} "
+                f"images: {prof['lpips_ms']:.3f} ms")
+    kernels = _mf_kernels(torch, captured["train"], mods.faces, S, net_hw, B)
     log(f"[multiframe] phase {time.perf_counter() - t_phase:.2f} s")
     return {"launches": launches, "warmup_steps": n_w, "train_steps": n_t,
             "time_per_iter_train": [r["time_per_iter"] for r in main_recs],
             "peak_run_gib": peak_run / 2**30, "peak_step_gib": peak_step / 2**30,
-            "overflow": overflow, "profile": prof, "kernels": kernels}
+            "overflow": overflow, "profile": prof, "kernels": kernels, "opts": o}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Within the block kernel launches leave the counters as they were: a
+    check's own launches beside a counted path."""
+    saved = read_launches()
+    try:
+        yield
+    finally:
+        for counts in _counters():
+            for k in counts:
+                counts[k] = saved[k]
+
+
+# the evaluate phase: the CLI's TTO iterations; the iterations of the
+# call the sync check watches; the kernel path's iterations from whose
+# state one step through each path is compared (the first 10, then every
+# 10th)
+EVAL_TTO_ITERS, EVAL_TRACE_ITERS = 100, 10
+EVAL_FORCED_AT = tuple(range(10)) + tuple(range(19, EVAL_TTO_ITERS, 10))
+EVAL_KEYS = ["cams", "ious", "kp_errs", "kp_pred", "kp_vis"]  # the JAX CLI's results.npz
+
+
+@contextlib.contextmanager
+def tto_params(torch, rec: dict):
+    """Within the block every TTO iteration appends its parameters before
+    its Adam step (delta_v_res, then the raw camera when it is optimized)
+    and their gradients, each as one flat vector, to rec["state"] and
+    rec["grad"]."""
+    from acfm_video_3d_reconstruction_tpu_torch.eval import predictor
+
+    real = predictor._dense_grads
+
+    def dense(opt):
+        real(opt)
+        ps = [p for g in opt.param_groups for p in g["params"]]
+        rec.setdefault("state", []).append(torch.cat([p.detach().reshape(-1) for p in ps]))
+        rec.setdefault("grad", []).append(torch.cat([p.grad.reshape(-1) for p in ps]))
+
+    predictor._dense_grads = dense
+    try:
+        yield
+    finally:
+        predictor._dense_grads = real
+
+
+def _rel_vec(torch, a, b) -> float:
+    """Vector relative error ||a - b|| / ||b|| (0 when both are 0)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    diff = torch.linalg.vector_norm(a - b).item()
+    return 0.0 if diff == 0 else diff / torch.linalg.vector_norm(b).item()
+
+
+def _tto_small_scene(torch):
+    """The CPU tests' TTO scene (tests/test_torch_port_tto.py::_scene(2)) on
+    the CPU, from numpy seeds and the port alone: 32^2, icosphere subdivide
+    1, 6 handles, the template at half scale, 2 clips of 2 frames, GT masks
+    of the template deformed by known handle offsets, random edt maps and
+    boundary points, a smooth flow field. Returns (mods, args)."""
+    from types import SimpleNamespace
+
+    from acfm_video_3d_reconstruction_tpu_torch.deform.solve import screened_poisson_solve
+    from acfm_video_3d_reconstruction_tpu_torch.geometry import camera
+    from acfm_video_3d_reconstruction_tpu_torch.geometry.mesh_ops import cot_laplacian
+    from acfm_video_3d_reconstruction_tpu_torch.models.template import build_template
+    from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer as ras
+
+    size, T, BT = 32, 2, 4
+    t = build_template(subdivide=1, num_lbs=6, tex_size=2, num_kps=0)
+    rng = np.random.default_rng(20 + T)
+    mean = torch.from_numpy((t.verts * 0.5).astype(np.float32))
+    lbs = torch.softmax(torch.from_numpy(t.lbs_logits.astype(np.float32)), dim=0).T
+    q = np.asarray([1.0, 0.0, 0.0, 0.0]) + 0.15 * rng.normal(size=(BT, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    cams = torch.from_numpy(np.concatenate([rng.uniform(0.9, 1.1, (BT, 1)),
+                                            rng.uniform(-0.05, 0.05, (BT, 2)), q],
+                                           -1).astype(np.float32))
+    gt_delta = torch.from_numpy((rng.normal(size=(BT, 6, 3)) * 0.1).astype(np.float32))
+    faces = torch.as_tensor(t.faces, dtype=torch.long)
+    gt_v = screened_poisson_solve(mean, lbs, gt_delta, cot_laplacian(mean, faces))
+    proj = camera.orthographic_proj_withz(gt_v, cams, offset_z=0.0)
+    mask = (ras.soft_silhouette(proj, faces, size)[0] > 0.5).float()
+    bounds = rng.uniform(-0.7, 0.7, (BT, 24, 3)).astype(np.float32)
+    bounds[..., 2] = rng.random((BT, 24)) > 0.25
+    yy, xx = np.mgrid[:size, :size] / size * 2 - 1
+    flows = np.zeros((2, T, size, size, 2), np.float32)
+    flows[:, :-1] = np.stack([1.5 + np.sin(2 * xx + 1) + 0.5 * yy,
+                              -0.5 + np.cos(3 * yy) * 0.8], -1)
+    batch = {"mask": mask, "edt": torch.from_numpy(rng.random((BT, size, size)).astype(np.float32)),
+             "boundaries": torch.from_numpy(bounds), "optical_flows": torch.from_numpy(flows)}
+    mods = SimpleNamespace(template=t, cfg=SimpleNamespace(model=SimpleNamespace(img_size=size)),
+                           device="cpu")
+    return mods, (mean, lbs, torch.zeros(BT, 6, 3), cams, batch)
+
+
+def phase_evaluate(torch, device, card, train_opts, tmp, profile=None):
+    """Multiframe evaluation as users run it after training: the evaluate
+    CLI's `evaluate` (cli/multiframe_evaluate.py) at its defaults on the
+    multiframe phase's tree and its latest checkpoint (the same options:
+    the horse model, G 8, batch 8 clips of 2 frames, 256², f32, TF32 off,
+    --of_loss_wt 1, --flow_random_init, the keypoint dictionary), with
+    --num_optim_iter EVAL_TTO_ITERS, in three runs:
+      a. --split test --optimize --save_visuals 1 --save_mat;
+      b. --split train --use_argmax_camera --optimize --optimize_camera;
+      c. --use_gt_camera --gauge_align, no TTO.
+    Launches per run, exactly: with TTO per batch N+2 soft (one per TTO
+    iteration, the final loss, the evaluated mask), N+1 hard (the flow
+    term's visibility), N soft_bwd and 5 md=4 + 10 md=2 cost volumes (one
+    flow call); without TTO 1 soft per batch. On every TTO batch the final
+    loss below the loss at iteration 0 (a 0-step refine, uncounted); run
+    b's cameras unit quaternions within 1e-5; results.npz with the JAX
+    CLI's keys, results.mat, a finite reference line, one
+    eval_batch_0000.png. Logs seconds per batch of each run, the TTO views'
+    bin_overflow_counts and the runs' peak memory.
+
+    Then, on run b's first batch (16 views, the camera optimized): ms per
+    TTO iteration by host clock ((t(N) - t(0)) / N, each call ending in
+    synchronize) beside the CLI runs' own; a TTO call under
+    torch.cuda.set_sync_debug_mode("warn") must warn of no synchronizing
+    operation (the refiner is built before: its build uploads the template's
+    tensors, which the mode flags); the kernels against the plain
+    rasterizer and correlation_plain under deterministic algorithms, in the
+    trace mode. The loss makes discrete choices (the boundary term's
+    nearest visible vertex, the flow term's nearest pixel, both
+    visibilities), so two free runs part at the first choice a rounding
+    difference tips, some 2-14 iterations in
+    (tools/torch_tto_drift.py); the kernels are held from the kernel
+    path's own states instead: from each of its iterations EVAL_FORCED_AT,
+    one step through each path, the loss, IoU and gradient there and pred_v
+    and the camera after the step within vector relative error 1e-4. The
+    free runs of N iterations, through the plain versions, through the
+    kernels again and through the kernels from delta_v_res moved one ulp,
+    are logged against the kernel path's: the parameters' drift, the first
+    EVAL_TRACE_ITERS iterations' trace, pred_v, the final loss and the
+    camera after N. Then the CPU tests' small TTO scene card vs CPU (5 steps, the
+    camera and the flow term on, the trace: losses rtol 1e-3, pred_v and
+    cameras vector relative error 1e-4, tests/test_torch_port_tto.py's
+    bounds); the panels (make_multiframe_vis_fn on the restored state, 1
+    soft launch; VisRenderer and diff_vp, 1 hard launch each; PNGs of the
+    expected shapes); each kernel alone at the TTO views with its bound;
+    with `profile`, device ms of one TTO iteration by kind ((profile of 20
+    iterations - profile of 10) / 10) and the bin pass alone."""
+    import os
+    import traceback
+    import warnings
+
+    from acfm_video_3d_reconstruction_tpu_torch.cli import multiframe_evaluate as mfe
+    from acfm_video_3d_reconstruction_tpu_torch.cli import multiframe_main
+    from acfm_video_3d_reconstruction_tpu_torch.eval import predictor
+    from acfm_video_3d_reconstruction_tpu_torch.flow.infer import NET_H, NET_W
+    from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer as ras
+    from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
+    from acfm_video_3d_reconstruction_tpu_torch.train.visualize import make_multiframe_vis_fn
+    from acfm_video_3d_reconstruction_tpu_torch.utils import vis as vis_utils
+
+    t_phase = time.perf_counter()
+    base = mfe.default_opts()
+    base.update({k: v for k, v in train_opts.items() if k in base or k == "flow_net_hw"})
+    base.update(num_optim_iter=EVAL_TTO_ITERS, device=str(device))
+    N, B, T, S = EVAL_TTO_ITERS, base["batch_size"], base["num_frames"], base["img_size"]
+    net_hw = base.get("flow_net_hw", (NET_H, NET_W))
+
+    real_make, real_vis = predictor.make_tto_step_fn, ras.soft_silhouette_vis
+    calls, first, views = [], {}, {}
+
+    def recording_make(mods, tto, num_frames, trace_vert2kp=None):
+        """The CLI's refiner, recording per batch the loss at iteration 0
+        (uncounted), the final loss and the seconds; the first batch's
+        inputs for the checks after the runs."""
+        refine = real_make(mods, tto, num_frames, trace_vert2kp)
+        zero_steps = real_make(mods, dataclasses.replace(tto, num_iter=0), num_frames)
+
+        def run(mean_shape, lbs, delta, cam, batch):
+            with uncounted():
+                loss0 = zero_steps(mean_shape, lbs, delta, cam, batch)[2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = refine(mean_shape, lbs, delta, cam, batch)
+            torch.cuda.synchronize()
+            calls.append((float(loss0), float(out[2]), time.perf_counter() - t0))
+            first.setdefault(tag, dict(mods=mods, tto=tto, num_frames=num_frames, args=(
+                mean_shape, lbs, delta, cam,
+                {k: v for k, v in batch.items() if k != "optical_flows"})))
+            return out
+        return run
+
+    def watching_vis(verts, *a, **kw):
+        views.setdefault("tto", verts.detach())
+        return real_vis(verts, *a, **kw)
+
+    runs = {}
+    for tag, flags in (("a", dict(split="test", optimize=True, save_visuals=1, save_mat=True)),
+                       ("b", dict(split="train", use_argmax_camera=True, optimize=True,
+                                  optimize_camera=True)),
+                       ("c", dict(use_gt_camera=True, gauge_align=True))):
+        o = dict(base, results_dir=os.path.join(tmp, f"eval_{tag}"), **flags)
+        predictor.make_tto_step_fn, ras.soft_silhouette_vis = recording_make, watching_vis
+        del calls[:]
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            t0 = time.perf_counter()
+            stats = mfe.evaluate(o)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            predictor.make_tto_step_fn, ras.soft_silhouette_vis = real_make, real_vis
+        n_b = len(stats.ious)
+        res = stats.results()
+        require(n_b > 0 and all(np.isfinite(v) for v in res.values()),
+                f"evaluate {tag}: {n_b} batches, reference line {res}")
+        npz = np.load(os.path.join(o["results_dir"], "results.npz"))
+        require(sorted(npz.files) == EVAL_KEYS, f"evaluate {tag}: results.npz keys {npz.files}")
+        if o["optimize"]:
+            want = only(soft=n_b * (N + 2), hard=n_b * (N + 1), soft_bwd=n_b * N,
+                        corr_md4=5 * n_b, corr_md2=10 * n_b)
+            require(len(calls) == n_b and all(c[1] < c[0] for c in calls),
+                    f"evaluate {tag}: TTO loss (iteration 0, final, s) per batch {calls}")
+        else:
+            want = only(soft=n_b)
+        require(launches == want, f"evaluate {tag}: launches {launches} != {want} ({n_b} batches)")
+        runs[tag] = dict(secs=secs, batches=n_b, launches=launches, results=res,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         tto=list(calls), cams=npz["cams"])
+        log(f"[evaluate] run {tag} {flags}: {n_b} batches of {B} clips x {T} frames at {S}^2 in "
+            f"{secs:.2f} s ({secs / n_b:.3f} s per batch, restore and dataset included); "
+            f"launches {launches}; reference line {json.dumps(res)}; peak memory "
+            f"{runs[tag]['peak_gib']:.3f} GiB; card {card}")
+        if calls:
+            log(f"[evaluate] run {tag} TTO per batch (loss at iteration 0, final loss, s): "
+                + json.dumps([[round(x, 6) for x in c] for c in calls]))
+    a_dir = os.path.join(tmp, "eval_a")
+    require(os.path.exists(os.path.join(a_dir, "results.mat")), "evaluate a: no results.mat")
+    pngs = sorted(f for f in os.listdir(a_dir) if f.endswith(".png"))
+    require(pngs == ["eval_batch_0000.png"], f"evaluate a: panels {pngs}")
+    q_norm = np.linalg.norm(runs["b"]["cams"][:, 3:], axis=-1)
+    q_err = float(np.abs(q_norm - 1).max())
+    require(q_err <= 1e-5, f"evaluate b: |q| - 1 up to {q_err}")
+    # run b's first batch: the camera optimized, the flow term on. The
+    # checks from here on log a failure and raise at the end of the phase,
+    # so that one run on the card reports every one of them.
+    failures = []
+
+    def check(cond, what):
+        if not cond:
+            log(f"[evaluate] FAILED: {what}")
+            failures.append(what)
+
+    mods, tto, nf = first["b"]["mods"], first["b"]["tto"], first["b"]["num_frames"]
+    proj = views["tto"]  # run a's first TTO iteration's projected views
+    K = rc.auto_K(mods.faces.shape[0], S, ras.DEFAULT_K)
+    ovf = rc.bin_overflow_counts(proj, mods.faces, S, K)
+    overflow = (tuple(proj.shape), K, int(ovf.max()), int((ovf > 0).sum()), int(ovf.sum()))
+    log(f"[evaluate] bin_overflow_counts of the TTO views (views shape, K, max per bin, bins "
+        f"over, faces dropped): {json.dumps(overflow)}; run b |q| - 1 up to {q_err:.3g}")
+    mean_shape, lbs, delta, cam, upload = first["b"]["args"]
+    flow_fn = multiframe_main.make_flow_fn_from_opts(base, S, device)
+    db = flow_fn(dict(upload))
+
+    def tto_fn(n, trace=None):
+        """The refiner of n iterations (built outside any timing or check)."""
+        return functools.partial(real_make(mods, dataclasses.replace(tto, num_iter=n), nf, trace),
+                                 mean_shape, lbs, delta, cam)
+
+    stacks = []
+
+    def show(message, *a, **kw):
+        if "called a synchronizing" in str(message):
+            stacks.append(f"{message}\n" + "".join(traceback.format_stack(limit=10)[:-1]))
+
+    def host_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(db)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    fn_n, fn_0 = tto_fn(N), tto_fn(0)
+    host = [(host_s(fn_n), host_s(fn_0)) for _ in range(2)][-1]
+    ms_iter = (host[0] - host[1]) / N * 1e3
+    in_cli = {tag: float(np.median([c[2] for c in runs[tag]["tto"]])) / N * 1e3
+              for tag in ("a", "b")}
+    log(f"[evaluate] TTO at {proj.shape[0]} views: {ms_iter:.3f} ms per iteration by host clock "
+        f"(({host[0]:.4f} s for {N} iterations - {host[1]:.4f} s for 0) / {N}); in the CLI's "
+        f"runs a and b, the median batch's refine / {N}: {json.dumps(in_cli)} ms; card {card}")
+
+    fn = tto_fn(EVAL_TRACE_ITERS)
+    fn(db)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(db)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for st in stacks[:3]:
+        log("[evaluate] synchronizing operation in the TTO call:\n" + st)
+    log(f"[evaluate] sync debug mode: {len(stacks)} synchronizing operations in a TTO call of "
+        f"{EVAL_TRACE_ITERS} iterations")
+    check(not stacks, f"evaluate: {len(stacks)} synchronizing operations in a TTO call")
+
+    vert2kp = mods.model.get_vert2kp().detach()
+    flows = {}
+    for plain in (False, True):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(deterministic_algorithms(torch))
+            if plain:
+                stack.enter_context(plain_correlation())
+            flows[plain] = flow_fn(dict(upload))
+
+    def traced(n, plain, start=(delta, cam), rec=None):
+        """n iterations in the trace mode under deterministic algorithms,
+        through the kernels or the plain versions (the flows too), from
+        start = (delta_v_res, raw camera); rec collects each iteration's
+        parameters and gradients (tto_params)."""
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(deterministic_algorithms(torch))
+            if plain:
+                stack.enter_context(plain_rasterizer())
+            if rec is not None:
+                stack.enter_context(tto_params(torch, rec))
+            out = real_make(mods, dataclasses.replace(tto, num_iter=n), nf, vert2kp)(
+                mean_shape, lbs, *start, flows[plain])
+        torch.cuda.synchronize()
+        return out
+
+    # the free runs: the loss's discrete choices (the boundary term's
+    # nearest visible vertex, the flow term's nearest pixel, the
+    # visibilities) turn a rounding difference into a different trajectory
+    # (tools/torch_tto_drift.py), so they are logged beside the kernel
+    # path's response to a one-ulp change of its own input, and the kernels
+    # are held from the kernel path's states, one step at a time
+    ref = {}
+    k_full = traced(N, False, rec=ref)
+    coin = torch.rand(delta.shape, generator=torch.Generator(device=device).manual_seed(0),
+                      device=device) < 0.5
+    ulp_delta = torch.nextafter(delta, torch.where(coin, float("inf"), float("-inf")))
+    n10 = EVAL_TRACE_ITERS
+    at = [i for i in (1, 2, 3, 5, 10, 20, 30, 50, 75, N - 1) if i < N]
+    free = {}
+    for name, plain, start in (("plain", True, (delta, cam)), ("again", False, (delta, cam)),
+                               ("ulp", False, (ulp_delta, cam))):
+        rec = {}
+        run = traced(N, plain, start, rec)
+        loss = [_rel_vec(torch, run[3]["loss"][i], k_full[3]["loss"][i]) for i in range(N)]
+        state = [_rel_vec(torch, rec["state"][i], ref["state"][i]) for i in range(N)]
+        free[name] = {f"parameters after {n}": state[n] for n in at}
+        free[name].update({
+            f"loss, iou and cam over the first {n10}": max(
+                _rel_vec(torch, run[3][k][:n10], k_full[3][k][:n10])
+                for k in ("loss", "iou", "cam")),
+            f"pred_v after {N}": _rel_vec(torch, run[0], k_full[0]),
+            f"final loss after {N}": _rel_vec(torch, run[2], k_full[2]),
+            f"cam after {N}": _rel_vec(torch, run[1], k_full[1]),
+            "loss first over 1e-4 at": next((i for i, d in enumerate(loss) if d > 1e-4), None),
+            "parameters first over 1e-4 at": next(
+                (i for i, d in enumerate(state) if d > 1e-4), None)})
+        log(f"[evaluate] TTO free run, {name} vs kernels (deterministic algorithms, "
+            f"{proj.shape[0]} views, camera optimized, vector rel): "
+            + json.dumps({k: v if v is None or isinstance(v, int) else float(f"{v:.3g}")
+                          for k, v in free[name].items()}))
+    n_delta = delta.numel()
+    forced = []
+    for i in EVAL_FORCED_AT:
+        start = (ref["state"][i][:n_delta].reshape(delta.shape),
+                 ref["state"][i][n_delta:].reshape(cam.shape) if tto.optimize_camera else cam)
+        rk, rp = {}, {}
+        k1, p1 = traced(1, False, start, rk), traced(1, True, start, rp)
+        forced.append({"loss": _rel_vec(torch, p1[3]["loss"], k1[3]["loss"]),
+                       "iou": _rel_vec(torch, p1[3]["iou"], k1[3]["iou"]),
+                       "grad": _rel_vec(torch, rp["grad"][0], rk["grad"][0]),
+                       "pred_v after the step": _rel_vec(torch, p1[0], k1[0]),
+                       "cam after the step": _rel_vec(torch, p1[1], k1[1])})
+    worst = {k: max(r[k] for r in forced) for k in forced[0]}
+    grads = [float(f"{r['grad']:.2g}") for r in forced]
+    log(f"[evaluate] TTO kernels vs plain from the kernel path's state at iterations "
+        f"{list(EVAL_FORCED_AT)}, one step each, vector rel: worst "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()})
+        + f"; the gradient's at each {grads}")
+    over = {k: v for k, v in worst.items() if v > 1e-4}
+    check(not over, f"evaluate: TTO kernels vs plain from the kernel path's states over 1e-4: "
+          f"{over}")
+
+    small_mods, small_args = _tto_small_scene(torch)
+    small_tto = predictor.TTOConfig(num_iter=5, lr=2e-2, of_wt=1.0, optimize_camera=True)
+    kp = torch.softmax(torch.from_numpy(np.random.default_rng(9).normal(
+        size=(3, small_mods.template.num_verts)).astype(np.float32)), dim=1)
+    on_cpu = real_make(small_mods, small_tto, 2, kp)(*small_args)
+    card_mods = type(small_mods)(**dict(vars(small_mods), device=device))
+    to_dev = [a.to(device) if torch.is_tensor(a) else {k: v.to(device) for k, v in a.items()}
+              for a in small_args]
+    on_card = real_make(card_mods, small_tto, 2, kp.to(device))(*to_dev)
+    small = {"final_loss": abs(float(on_card[2]) - float(on_cpu[2])) / abs(float(on_cpu[2])),
+             "trace_loss": ((on_card[3]["loss"].cpu() - on_cpu[3]["loss"]).abs()
+                            / on_cpu[3]["loss"].abs()).max().item(),
+             "pred_v": _rel_vec(torch, on_card[0], on_cpu[0]),
+             "cam": _rel_vec(torch, on_card[1], on_cpu[1])}
+    log(f"[evaluate] small TTO (32^2, 42 vertices, 2 clips x 2 frames, 5 steps, camera and "
+        f"flow term on) card (kernels) vs cpu (plain): {json.dumps(small)}")
+    check(small["final_loss"] <= 1e-3 and small["trace_loss"] <= 1e-3
+          and small["pred_v"] <= 1e-4 and small["cam"] <= 1e-4,
+          f"evaluate: small TTO card vs cpu {small} over (1e-3, 1e-3, 1e-4, 1e-4)")
+
+    vis_dir = os.path.join(tmp, "eval_panels")
+    zero_launches()
+    make_multiframe_vis_fn(mods)(vis_dir, 0, upload)
+    check(read_launches() == only(soft=1), f"panels: launches {read_launches()} != 1 soft")
+    from PIL import Image
+
+    panel = np.asarray(Image.open(os.path.join(vis_dir, "vis", "step_0000000.png")))
+    check(panel.shape == (min(4, B * T) * S, 5 * S, 3), f"panels: vis panel {panel.shape}")
+    renderer = vis_utils.VisRenderer(S, mods.template.faces, device=device)
+    pred_v, cam_out = k_full[0], k_full[1]
+    zero_launches()
+    front = renderer(pred_v[0], cam_out[0])
+    side = renderer.diff_vp(pred_v[0], cam_out[0])
+    check(read_launches() == only(hard=2), f"panels: VisRenderer launches {read_launches()}")
+    for name, img in (("front", front), ("diff_vp", side)):
+        vis_utils.save_image(os.path.join(vis_dir, f"render_{name}.png"), img)
+        saved = np.asarray(Image.open(os.path.join(vis_dir, f"render_{name}.png")))
+        check(saved.shape == (S, S, 3) and (saved != 255).any(),
+              f"panels: VisRenderer {name} {saved.shape}")
+    log(f"[evaluate] panels: make_multiframe_vis_fn {panel.shape} with 1 soft launch; "
+        f"VisRenderer and diff_vp {front.shape} with 1 hard launch each")
+
+    prof = {}
+    if profile is not None:
+        fn20, fn10, fn3 = tto_fn(20), tto_fn(10), tto_fn(3)
+        k20 = _mf_profile(torch, lambda: fn20(db), f"a TTO call of 20 iterations "
+                          f"({proj.shape[0]} views)", profile, tag="evaluate", host_top=25)
+        k10p = _mf_profile(torch, lambda: fn10(db), f"a TTO call of 10 iterations "
+                           f"({proj.shape[0]} views)", profile, tag="evaluate")
+        _mf_profile(torch, lambda: fn3(db), f"a TTO call of 3 iterations ({proj.shape[0]} "
+                    f"views), timeline", None, tag="evaluate", trace=profile + ".tto3.json")
+        per_iter = {k: (k20[1][k] - k10p[1][k]) / 10 for k in k20[1]}
+        dev_ms = (k20[0] - k10p[0]) / 10
+        bin_ms = {m: time_cuda(lambda: rc.bin_faces(proj, mods.faces, S, K, blur), 10)
+                  for m, blur in (("soft", rc.BLUR_RADIUS), ("hard", 0.0))}
+        prof = {"device_ms_per_iter": dev_ms, "by_kind": per_iter, "bin_ms": bin_ms,
+                "busy_share": dev_ms / ms_iter}
+        log(f"[evaluate] one TTO iteration: {dev_ms:.4f} ms of device time ((20 - 10 "
+            f"iterations) / 10) against {ms_iter:.3f} ms by host clock (device busy "
+            f"{100 * dev_ms / ms_iter:.1f}%); by kind "
+            + json.dumps({k: round(v, 4) for k, v in per_iter.items()})
+            + f"; bin pass alone {json.dumps(bin_ms)} ms")
+    kernels = _mf_kernels(torch, proj, mods.faces, S, net_hw, B, tag="evaluate")
+    log(f"[evaluate] phase {time.perf_counter() - t_phase:.2f} s")
+    require(not failures, f"evaluate: {len(failures)} checks failed: {failures}")
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["a"]["launches"]}
+    return {"launches": launches, "runs": {k: {x: r[x] for x in ("secs", "batches", "peak_gib")}
+                                           for k, r in runs.items()},
+            "ms_per_tto_iter": ms_iter, "ms_per_tto_iter_in_cli": in_cli, "overflow": overflow,
+            "profile": prof, "kernels": kernels}
 
 
 def _flow_shapes(net_hw):
@@ -1470,7 +1959,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
                     help="append torch.profiler tables of one eval step, one train step, one "
-                    "make_flow_fn call and one multiframe flow call and train step here")
+                    "make_flow_fn call, one multiframe flow call and train step and two TTO "
+                    "calls here")
     args = ap.parse_args(argv)
 
     import torch
@@ -1511,7 +2001,9 @@ def main(argv=None) -> int:
     records += phase_flow_kernels(torch, device)
     phase_flow_small(torch, device)
     flow_pps, flow_spread, flow_launches = phase_flow(torch, device, args.profile)
-    multiframe = phase_multiframe(torch, device, card, args.profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        multiframe = phase_multiframe(torch, device, card, tmp, args.profile)
+        evaluate = phase_evaluate(torch, device, card, multiframe["opts"], tmp, args.profile)
 
     counter = {"raster_fwd_soft": "soft", "raster_fwd_hard": "hard",
                "raster_bwd_soft": "soft_bwd", "correlation_md4": "corr_md4",
@@ -1520,7 +2012,7 @@ def main(argv=None) -> int:
         r["launches"] = sum(launches[counter[r["name"]]]
                             for launches in (eval_launches, train_launches, flow_launches,
                                              driver["train_launches"], driver["eval_launches"],
-                                             multiframe["launches"]))
+                                             multiframe["launches"], evaluate["launches"]))
     n_eval, n_train = EVAL_WINDOWS * EVAL_STEPS, TRAIN_WINDOWS * TRAIN_STEPS
     n_flow = FLOW_WINDOWS * FLOW_CALLS
     log("[result] " + json.dumps({
@@ -1540,7 +2032,10 @@ def main(argv=None) -> int:
         "multiframe_launches": multiframe["launches"],
         "multiframe_time_per_iter_train": multiframe["time_per_iter_train"],
         "multiframe_peak_run_gib": multiframe["peak_run_gib"],
-        "multiframe_peak_step_gib": multiframe["peak_step_gib"]}))
+        "multiframe_peak_step_gib": multiframe["peak_step_gib"],
+        "evaluate_launches": evaluate["launches"], "evaluate_runs": evaluate["runs"],
+        "evaluate_ms_per_tto_iter": evaluate["ms_per_tto_iter"],
+        "evaluate_ms_per_tto_iter_in_cli": evaluate["ms_per_tto_iter_in_cli"]}))
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -337,11 +337,12 @@ def test_driver_nan_dump(tmp_path, monkeypatch):
     assert set(dump["batch"]) == set(tmf.BATCH_KEYS) | {"optical_flows"}
 
 
-def test_cli_flags_and_refusals(pkl_root, tmp_path):
+def test_cli_flags_and_refusals(pkl_root, tmp_path, monkeypatch):
     """The JAX CLI's flags with its defaults, plus --device (default cuda);
-    the PASCAL / ImageNet mixes and the visualisation panels, not ported,
-    refused with the missing module named; of_loss without a flow source
-    refused as JAX refuses it; no card and no --device cpu, an exit."""
+    the PASCAL / ImageNet mixes, not ported, refused with the missing module
+    named; the visualisation panels (--display_freq > 0) accepted and passed
+    on to the driver loop; of_loss without a flow source refused as JAX
+    refuses it; no card and no --device cpu, an exit."""
     want = dict(_jax_flags(os.path.join(ROOT, "acfm_video_3d_reconstruction_tpu", "cli",
                                         "multiframe_main.py")), device="cuda")
     assert tcli.default_opts() == want
@@ -352,8 +353,13 @@ def test_cli_flags_and_refusals(pkl_root, tmp_path):
                                                                "data/objects.py")):
         with pytest.raises(NotImplementedError, match=module):
             tcli.train(dict(o, **{flag: True}))
-    with pytest.raises(NotImplementedError, match="make_multiframe_vis_fn"):
-        tcli.train(dict(o, display_freq=1))
+    seen = {}
+    monkeypatch.setattr(tcli.driver, "run_multiframe_training",
+                        lambda cfg, *a, **kw: seen.setdefault("display_freq",
+                                                              cfg.train.display_freq))
+    tcli.train(dict(o, display_freq=3))
+    assert seen == {"display_freq": 3}
+    monkeypatch.undo()
     with pytest.raises(ValueError, match="flow_checkpoint"):
         tcli.train(dict(o, flow_random_init=False))
     if not torch.cuda.is_available():
@@ -375,11 +381,16 @@ def _imports(path):
 
 
 def test_port_sources_import_no_jax():
-    """No source of the port package, nor tools/tigdog_fixture.py nor
-    chip_smoke.py, imports JAX, its libraries or the JAX package, at any
-    depth of the code (test_torch_port_raster.py::test_port_imports_no_jax
-    imports them all and checks what gets loaded)."""
-    paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "tigdog_fixture.py")]
+    """No source of the port package, nor tools/tigdog_fixture.py, the
+    port's tools/torch_*.py or chip_smoke.py, imports JAX, its libraries or
+    the JAX package, at any depth of the code
+    (test_torch_port_raster.py::test_port_imports_no_jax imports them all
+    and checks what gets loaded)."""
+    tools = os.path.join(ROOT, "tools")
+    paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(tools, "tigdog_fixture.py")]
+    paths += [os.path.join(tools, f) for f in sorted(os.listdir(tools))
+              if f.startswith("torch_") and f.endswith(".py")]
+    assert os.path.join(tools, "torch_tto_drift.py") in paths
     for d, _, files in os.walk(os.path.join(ROOT, "acfm_video_3d_reconstruction_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     bad = [(p, m) for p in paths for m in _imports(p) if m.split(".")[0] in _JAX_ROOTS]

@@ -1,7 +1,7 @@
 """A TigDog-format pkl tree made from a seed, for tests and smoke runs.
 
     python3 tools/tigdog_fixture.py OUT_DIR [--category horse] [--videos 4]
-        [--frames 8] [--raw 360 640] [--seed 0]
+        [--frames 8] [--raw 360 640] [--seed 0] [--kp_dict PATH --num_verts 642]
 
 Writes what data/tigdog.py::VideoPklDataset reads, one pkl per video:
   OUT_DIR/<category>/vid_<i>.pkl  {"video": (T, H, W, 3) uint8,
@@ -15,8 +15,15 @@ textured background: it moves a few pixels a frame and its legs swing, so
 consecutive frames differ as a clip's do and crop and resize really run at
 360x640. Its 19 keypoints lie on the blob (the last, the neck, always
 visible; a few others hidden per video); its SfM camera is a side view in
-the [-1, 1] units of the bbox crop, turning slowly. numpy only; imports
-nothing of either package of the repo.
+the [-1, 1] units of the bbox crop, turning slowly.
+
+With --kp_dict PATH it also writes the keypoint dictionary the CLIs'
+--kp_dict reads: one template vertex for each keypoint a clip keeps after
+the loader drops the neck (NUM_KPS - 1), spread over the ids of a template
+of --num_verts vertices. The evaluate CLI needs the model's keypoints to
+match the batches'; without a dictionary the model has at most one
+keypoint per handle. numpy only; imports nothing of either package of the
+repo.
 """
 from __future__ import annotations
 
@@ -114,6 +121,15 @@ def write_tigdog_tree(root: str, category: str = "horse", n_videos: int = 4,
     return out
 
 
+def write_kp_dict(path: str, num_verts: int, num_kps: int = NUM_KPS - 1) -> str:
+    """Write {"kp_<i>": vertex id} for num_kps keypoints spread evenly over
+    the ids of a num_verts-vertex template; returns `path`."""
+    ids = np.linspace(0, num_verts - 1, num_kps).round().astype(np.int64)
+    with open(path, "wb") as f:
+        pickle.dump({f"kp_{i:02d}": int(v) for i, v in enumerate(ids)}, f)
+    return path
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("out")
@@ -122,5 +138,10 @@ if __name__ == "__main__":
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--raw", type=int, nargs=2, default=(360, 640))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kp_dict", default="", help="also write a keypoint dictionary here")
+    ap.add_argument("--num_verts", type=int, default=642,
+                    help="template vertices for --kp_dict (642: icosphere subdivide 3)")
     a = ap.parse_args()
     write_tigdog_tree(a.out, a.category, a.videos, a.frames, tuple(a.raw), a.seed)
+    if a.kp_dict:
+        write_kp_dict(a.kp_dict, a.num_verts)
