@@ -15,9 +15,8 @@ Usage:
 
 --display_freq N writes an image panel every N main-loop steps to
 <checkpoint_dir>/<name>/vis/ (train/visualize.py::make_multiframe_vis_fn).
-Not ported yet, and refused with an error naming what is missing: the
-PASCAL and ImageNet mixes (--expand_pascal, --expand_imgnet: data/pascal.py,
-data/objects.py).
+--expand_pascal and --expand_imgnet mix PASCAL and ImageNet stills
+(data/pascal.py, data/objects.py) into the video datasets, as in JAX.
 """
 from __future__ import annotations
 
@@ -233,13 +232,8 @@ def make_lpips_loader(o: dict):
 def build_video_dataset(o: dict):
     """Video-level dataset mixing (reference multiframe/main.py:216-242):
     horse/tiger: TigDog (+ YTVIS + COCO with --expand_ytvis); other
-    quadrupeds: YTVIS (+ COCO). The PASCAL and ImageNet mixes are refused:
-    their data modules are not ported yet."""
-    for flag, module in (("expand_pascal", "data/pascal.py"),
-                         ("expand_imgnet", "data/objects.py")):
-        if o.get(flag):
-            raise NotImplementedError(
-                f"--{flag} needs {module}, which the PyTorch port does not have yet")
+    quadrupeds: YTVIS (+ PASCAL stills + COCO with --expand_pascal); with
+    --expand_imgnet, ImageNet synset stills last (objects.py:238-243)."""
     cat = o["category"]
     kps = o["num_kps"]
     parts = []
@@ -251,6 +245,18 @@ def build_video_dataset(o: dict):
                 parts.append(tig.COCOPklDataset(o["root_dir_coco"], cat, num_kps=kps))
     else:
         parts.append(tig.YTVISPklDataset(o["root_dir_yt"] or o["root_dir"], cat, num_kps=kps))
+        if o["expand_pascal"]:
+            from ..data.pascal import PascalVideoDataset
+
+            parts.append(PascalVideoDataset(o["pascal_img_dir"], o["pascal_anno_path"],
+                                            num_kps=kps))
+            if o["root_dir_coco"]:
+                parts.append(tig.COCOPklDataset(o["root_dir_coco"], cat, num_kps=kps))
+    if o.get("expand_imgnet"):
+        from ..data.objects import ImageNetQuadVideoDataset
+
+        parts.append(ImageNetQuadVideoDataset(o["imgnet_dir"], o["imgnet_anno_path"], cat,
+                                              split="train", num_kps=kps))
     return parts[0] if len(parts) == 1 else tig.ConcatDataset(parts)
 
 

@@ -6,8 +6,8 @@ bbox perturb/square -> crop (bg=1 for image, 0 for mask) -> scale to
 img_size -> random mirror (kp permutation + quaternion reflection) ->
 kp/sfm_pose normalization to [-1, 1]. Batches are dicts of numpy arrays;
 the train loop moves them to the device (train/prefetch.py).
-SingleImageDatasetV2 (the affine augmentation, cv2.warpAffine) is not
-ported yet.
+SingleImageDatasetV2 adds the random affine augmentation (cv2.warpAffine,
+imported lazily), drawing from the same generator in the same order.
 """
 from __future__ import annotations
 
@@ -131,6 +131,48 @@ class SingleImageDataset:
             "sfm_pose": sfm_pose,
             "inds": index,
         }
+
+
+class SingleImageDatasetV2(SingleImageDataset):
+    """BaseDataset_v2 equivalent (monocular/data/base.py v2): adds a random
+    affine augmentation and returns `mirror_flag` + camera-transport
+    `transforms` so the trainer can follow the augmentation
+    (used by CUBDataset2 / the no-GT-pose monocular path)."""
+
+    def __init__(self, *args, affine: bool = True, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.affine = affine
+
+    def __getitem__(self, index: int) -> dict:
+        out = super().__getitem__(index)
+        mirror_flag = 0  # v1 mirroring already applied above; flag unknown
+        transforms = np.asarray([1.0, 0.0, 0.0, 0.0], np.float32)
+        if self.affine and self.split == "train":
+            import cv2
+
+            H, W = out["img"].shape[:2]
+            zoom = self.rng.uniform(0.8, 1.05)
+            shift = self.rng.uniform(-0.05, 0.05, 2)
+            M = np.asarray(
+                [[zoom, 0, (1 - zoom) * W / 2.0 + shift[0] * W],
+                 [0, zoom, (1 - zoom) * H / 2.0 + shift[1] * H]]
+            )
+            out["img"] = cv2.warpAffine(
+                out["img"], M, (W, H), flags=cv2.INTER_LINEAR, borderValue=(1, 1, 1)
+            ).astype(np.float32)
+            out["mask"] = cv2.warpAffine(
+                out["mask"], M, (W, H), flags=cv2.INTER_NEAREST
+            ).astype(np.float32)
+            kp = out["kp"].copy()
+            vis = kp[:, 2] > 0
+            kp[vis, :2] = kp[vis, :2] * zoom + 2.0 * shift[None, :]
+            out["kp"] = kp
+            transforms = np.asarray(
+                [zoom, 2.0 * shift[0], 2.0 * shift[1], 1.0], np.float32
+            )
+        out["mirror_flag"] = np.int32(mirror_flag)
+        out["transforms"] = transforms
+        return out
 
 
 class ConcatDataset:

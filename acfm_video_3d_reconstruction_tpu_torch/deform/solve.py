@@ -35,7 +35,16 @@ def screened_poisson_solve(
     target = (A @ mean_v)[None] + delta_handles.float()  # (B, K, 3)
     M = L.T @ L + A.T @ A
     rhs = (L.T @ (L @ mean_v))[None] + torch.einsum("kv,bkc->bvc", A, target)
-    chol = torch.linalg.cholesky(M)
+    # cholesky_ex: the same factor without cholesky's check of `info`, a
+    # read on the host that waits for the stream; a matrix that is not
+    # positive definite gives a non-finite factor, as JAX's cho_factor does
+    chol = torch.linalg.cholesky_ex(M).L
     rhs_flat = rhs.permute(1, 0, 2).reshape(V, B * 3)
     sol = torch.cholesky_solve(rhs_flat, chol)
     return sol.reshape(V, B, 3).permute(1, 0, 2)
+
+
+def lbs_from_logits(lbs_logits: torch.Tensor) -> torch.Tensor:
+    """(V, K) logits -> (K, V) skinning matrix: softmax over the vertex axis,
+    then transpose (reference mesh_net.get_lbs + .permute(1, 0))."""
+    return torch.softmax(lbs_logits, dim=0).T

@@ -205,3 +205,15 @@ def uniform_laplacian_smoothing(verts: torch.Tensor, L: torch.Tensor) -> torch.T
     """
     Lv = torch.einsum("ij,bjc->bic", L, verts)
     return safe_norm(Lv, dim=-1).mean()
+
+
+def face_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Unit face normals (..., F, 3)."""
+    fv = verts[..., faces, :]
+    n = torch.cross(fv[..., 1, :] - fv[..., 0, :], fv[..., 2, :] - fv[..., 0, :], dim=-1)
+    return n / safe_norm(n, dim=-1, keepdim=True)
+
+
+def edge_lengths(verts: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """Edge lengths (..., E) given verts (..., V, 3) and edges (E, 2)."""
+    return safe_norm(verts[..., edges[:, 0], :] - verts[..., edges[:, 1], :], dim=-1)

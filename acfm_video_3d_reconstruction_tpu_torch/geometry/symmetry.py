@@ -129,6 +129,7 @@ def symmetrize(v_half, num_sym: int):
     by appending x-mirrored copies of the last num_sym (right) verts.
     Matches reference multiframe/nnutils/mesh_net.py:573-591.
     """
-    flip = torch.tensor([-1.0, 1.0, 1.0], dtype=v_half.dtype, device=v_half.device)
-    v_left = flip * v_half[..., -num_sym:, :]
+    right = v_half[..., -num_sym:, :]
+    # x negated by indexing, not by a (-1, 1, 1) factor uploaded per call
+    v_left = torch.cat([-right[..., :1], right[..., 1:]], dim=-1)
     return torch.cat([v_half, v_left], dim=-2)

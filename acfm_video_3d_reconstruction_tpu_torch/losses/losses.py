@@ -45,10 +45,10 @@ def edt_loss(mask_rendered, edt, reduce: bool = True):
     return _reduce_tail(edt * mask_rendered, reduce)
 
 
-def boundaries_loss(proj_verts, boundaries, vis_verts, reduce: bool = True):
+def boundaries_loss(proj_verts, boundaries, vis_verts, reduce: bool = True, k: int = 1):
     """Each GT mask-boundary point should have a visible projected vertex
-    nearby. proj_verts (B, V, 2); boundaries (B, N, 3) = [x, y, valid];
-    vis_verts (B, V) 0/1."""
+    nearby (the mean squared distance to its k nearest). proj_verts
+    (B, V, 2); boundaries (B, N, 3) = [x, y, valid]; vis_verts (B, V) 0/1."""
     bds_v = boundaries[..., :2]
     bds_m = boundaries[..., 2]
     d2 = (
@@ -58,7 +58,11 @@ def boundaries_loss(proj_verts, boundaries, vis_verts, reduce: bool = True):
     )
     vis = vis_verts[:, None, :]
     d2 = (1.0 - vis) * 1000.0 + vis * d2
-    loss = (d2.amin(dim=-1) * bds_m).mean(-1)
+    if k == 1:
+        loss = (d2.amin(dim=-1) * bds_m).mean(-1)
+    else:
+        nearest = -torch.topk(-d2, k, dim=-1).values
+        loss = (nearest.mean(-1) * bds_m).mean(-1)
     return loss.mean() if reduce else loss
 
 
@@ -99,7 +103,57 @@ def deform_l2reg(V):
 
 def entropy_loss(A):
     """Row entropy of a (K, V) probability matrix."""
-    return (-(A * torch.log(torch.maximum(A, A.new_tensor(1e-12)))).sum(dim=1)).mean()
+    return (-(A * torch.log(torch.maximum(A, A.new_full((), 1e-12)))).sum(dim=1)).mean()
+
+
+def template_edge_loss(verts, template_verts, edges):
+    """||(edge_len^2 - template_edge_len^2)||_2 / B (loss_utils.py:80-114)."""
+    def sq_len(v):
+        d = v[..., edges[:, 0], :] - v[..., edges[:, 1], :]
+        return (d * d).sum(-1)
+
+    return safe_norm((sq_len(verts) - sq_len(template_verts)).reshape(-1)) / verts.shape[0]
+
+
+def triangle_loss(verts, edges2verts):
+    """Dihedral flatness via edge -> 4 vertices (legacy; loss_utils.py:292-319)."""
+    vA, vB, vC, vD = (verts[..., edges2verts[:, i], :] for i in range(4))
+    n1 = torch.cross(vD - vA, vB - vA, dim=-1)
+    n2 = torch.cross(vB - vA, vC - vA, dim=-1)
+    n1 = n1 / safe_norm(n1, dim=-1, keepdim=True)
+    n2 = n2 / safe_norm(n2, dim=-1, keepdim=True)
+    return ((1.0 - (n1 * n2).sum(-1)) ** 2).mean()
+
+
+def texture_loss_l1(img_pred, img_gt, mask_pred, mask_gt):
+    """Masked L1 (loss_utils.py:194-201). Images NHWC, masks (B, H, W)."""
+    return torch.abs(img_pred * mask_pred[..., None] - img_gt * mask_gt[..., None]).mean()
+
+
+def _dt_at(dist_transf, points, padding_mode="zeros"):
+    """The distance transform (B, H, W) or (B, 1, H, W) sampled bilinearly
+    (align_corners) at `points` (B, ..., 2) in [-1, 1] -> (B, ...)."""
+    if dist_transf.ndim == 3:
+        dist_transf = dist_transf[:, None]
+    return grid_sample(dist_transf, points, align_corners=True,
+                       padding_mode=padding_mode)[:, 0]
+
+
+def texture_dt_loss_v(texture_flow, dist_transf, reduce: bool = True):
+    """The DT image at per-vertex flow coordinates (loss_utils.py:172-191):
+    texture_flow (B, V, 2) in [-1, 1]; dist_transf (B, H, W) or (B, 1, H, W)."""
+    vals = _dt_at(dist_transf, texture_flow)
+    return vals.mean() if reduce else vals.mean(-1)
+
+
+def texture_dt_loss(texture_flow, dist_transf):
+    """Atlas-flow variant: (B, F, T, T, 2) flow (loss_utils.py:132-147)."""
+    return _dt_at(dist_transf, texture_flow.reshape(texture_flow.shape[0], -1, 2)).mean()
+
+
+def mask_dt_loss(proj_verts, dist_transf):
+    """DT at projected vertices, border padding (loss_utils.py:117-129)."""
+    return _dt_at(dist_transf, proj_verts, padding_mode="border").mean()
 
 
 def texture_cycle_loss(textures_colors, batch: int, num_frames: int):

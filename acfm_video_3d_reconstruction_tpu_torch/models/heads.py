@@ -26,7 +26,7 @@ class QuatPredictor(nn.Module):
     def forward(self, feat):
         q = self.fc(feat)
         sq = (q * q).sum(-1, keepdim=True)
-        return q / torch.sqrt(torch.maximum(sq, sq.new_tensor(1e-24)))
+        return q / torch.sqrt(torch.maximum(sq, sq.new_full((), 1e-24)))
 
 
 class ScalePredictor(nn.Module):

@@ -42,7 +42,7 @@ def _unit_normalize(feat: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     # post-ReLU feature vector (0/0 otherwise); the forward equals the
     # reference's feat / (norm + eps) to within eps
     sq = (feat ** 2).sum(dim=1, keepdim=True)
-    norm = torch.sqrt(torch.maximum(sq, sq.new_tensor(eps * eps)))
+    norm = torch.sqrt(torch.maximum(sq, sq.new_full((), eps * eps)))
     return feat / (norm + eps)
 
 

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..deform.solve import lbs_from_logits
 from ..geometry.symmetry import symmetrize
 from .encoder import Encoder, res_feats_side
 from .heads import CameraPredictor, TransformationPredictor
@@ -79,7 +80,7 @@ class MeshNet(nn.Module):
 
     def get_lbs(self) -> torch.Tensor:
         """(K, V) skinning matrix: softmax over vertices, transposed."""
-        return torch.softmax(self.lbs_logits, dim=0).T
+        return lbs_from_logits(self.lbs_logits)
 
     def get_vert2kp(self) -> Optional[torch.Tensor]:
         if self.vert2kp_logits is None:

@@ -80,9 +80,15 @@ def _autocast(mods: MonoModules):
     return contextlib.nullcontext()
 
 
+def _device_vector(like: torch.Tensor, values) -> torch.Tensor:
+    """`values` as a 1-D tensor of like's dtype, filled on like's device
+    (`new_tensor` would copy it from the host and wait for the stream)."""
+    return torch.stack([like.new_full((), v) for v in values])
+
+
 def normalize_imagenet(img: torch.Tensor) -> torch.Tensor:
-    mean = img.new_tensor(cfg_lib.IMAGENET_MEAN)
-    std = img.new_tensor(cfg_lib.IMAGENET_STD)
+    mean = _device_vector(img, cfg_lib.IMAGENET_MEAN)
+    std = _device_vector(img, cfg_lib.IMAGENET_STD)
     return (img - mean) / std
 
 

@@ -46,6 +46,17 @@ Phases, each of which raises (exit code 1) on failure:
      latest checkpoint restored into a fresh build gives the same eval step.
      Logs the driver's frames/s over steps 2-8, the loader's batches/s alone
      and the seconds of one checkpoint save.
+  4c. synthetic: the synthetic data path and its convergence demo
+     (data/synthetic.py, tools/torch_train_synthetic_demo.py at its
+     configuration: 1280 faces, batch 8 at 128^2, where the bins hold every
+     face, K = 1280): the dataset rendered through the soft kernel (one
+     launch) and the plain rasterizer at 128^2 and 256^2 (soft masks within
+     2e-4, thresholded >= 99.9% equal, no bin overflow), the small config
+     card vs CPU; run_demo for SYN_STEPS steps with exact launches, the loss
+     falling, IoU not falling, no synchronizing operation in a train or eval
+     step; one train step kernels vs plain (f32 nets, deterministic
+     algorithms, 1e-4); each rasterizer kernel alone at K = 1280 with its
+     bound; the device ms of one train step by kind.
   5. flow, the frozen two-stage MaskFlownet in f32 at full width, seeded
      random weights (flow/maskflownet.py::init_params):
      a. the cost-volume kernel against correlation_plain at the 10 distinct
@@ -841,6 +852,216 @@ def phase_driver(torch, device, card):
             "eval_launches": eval_launches}
 
 
+# the synthetic phase: the demo's frames and the image sizes rendered
+# through both rasterizer paths (the demo's 128^2, K = F = 1280, and 256^2,
+# K = 192); the steps of its training run on the card (the schedule over
+# the same steps); the card-vs-CPU render's config
+SYN_FRAMES, SYN_SIZES, SYN_STEPS = 32, (128, 256), 200
+SYN_SMALL = dict(img=64, template=dict(subdivide=2, num_lbs=6, tex_size=2, num_kps=4))
+
+
+def _demo():
+    """tools/torch_train_synthetic_demo.py, imported from this checkout."""
+    import importlib
+    import os
+
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module("torch_train_synthetic_demo")
+
+
+def _sync_ops(torch, fn):
+    """Stacks of the synchronizing operations that torch.cuda's sync debug
+    mode ("warn") reports while fn() runs."""
+    import traceback
+    import warnings
+
+    stacks = []
+
+    def show(message, *a, **kw):
+        if "called a synchronizing" in str(message):
+            stacks.append(f"{message}\n" + "".join(traceback.format_stack(limit=10)[:-1]))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return stacks
+
+
+def phase_synthetic(torch, device, card, profile=None):
+    """The synthetic data path and its convergence demo on the card
+    (data/synthetic.py, tools/torch_train_synthetic_demo.py at its
+    configuration: subdivide 3 (642 vertices, 1280 faces), 12 handles, 8
+    keypoints, tex 4, nz_feat 128, bf16 nets, batch 8 at 128^2, seed 3).
+
+    a. The dataset of SYN_FRAMES frames at each of SYN_SIZES: exactly one
+       soft launch a dataset; its render through the kernel and through the
+       plain rasterizer (uncounted): soft masks within atol 2e-4, thresholded
+       masks equal on >= 99.9% of the pixels, keypoints equal; the bins'
+       overflow 0 (K = F at 128^2, K = 192 at 256^2). Then the CPU tests'
+       config (64^2, subdivide 2) on the card against the CPU: masks equal
+       on >= 99.9% of the pixels, keypoints within 1e-5.
+    b. run_demo for SYN_STEPS steps (the cosine schedule over SYN_STEPS):
+       launches exactly 1 soft (the render), per train step 1 soft + 1 hard
+       + 1 soft_bwd, per eval step 1 soft + 1 hard (2 x 4 eval batches); the
+       loss at the last logged step below step 0's; mean IoU after >= before;
+       no synchronizing operation in one train step and one eval step
+       (sync debug mode). Logs IoU and PCK before and after, frames/s (host
+       clock over the loop, ending in a synchronize), peak memory and the
+       device ms of one train step by kind (torch.profiler).
+    c. One train step from the same state through the kernels and through
+       the plain rasterizer, the nets in f32 (phase_train's reason), under
+       deterministic algorithms: the loss and every gradient within vector
+       relative error 1e-4 (NOISE_SCALE's against their neighbour's scale),
+       the kernels against themselves beside it.
+    d. Each rasterizer kernel alone at K = 1280: the three on the train
+       step's 8 views at 128^2, the soft forward on the render's
+       SYN_FRAMES frames, each with its bound and its plain version's time
+       (_raster_alone)."""
+    from acfm_video_3d_reconstruction_tpu_torch.data.synthetic import (
+        SyntheticConfig,
+        SyntheticDataset,
+    )
+    from acfm_video_3d_reconstruction_tpu_torch.geometry import camera as cam_utils
+    from acfm_video_3d_reconstruction_tpu_torch.models.template import build_template
+    from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
+    from acfm_video_3d_reconstruction_tpu_torch.train import monocular
+
+    demo = _demo()
+    t_phase = time.perf_counter()
+    anchors = np.random.default_rng(demo.ANCHOR_SEED).choice(
+        demo.num_verts(demo.SUBDIVIDE), demo.NUM_KPS, replace=False)
+    template = build_template(subdivide=demo.SUBDIVIDE, num_lbs=demo.NUM_LBS,
+                              tex_size=demo.TEX_SIZE, num_kps=demo.NUM_KPS,
+                              kp_vertex_ids=[np.asarray([a]) for a in anchors])
+    F = template.num_faces
+    renders = {}
+    for size in SYN_SIZES:
+        cfg = SyntheticConfig(num_frames_total=SYN_FRAMES, clip_len=1, image_size=size,
+                              num_kps=demo.NUM_KPS, seed=demo.DATA_SEED,
+                              kp_vertex_ids=tuple(anchors))
+        zero_launches()
+        ds = SyntheticDataset(template, cfg, device=device)
+        launches = read_launches()
+        require(launches == only(soft=1),
+                f"synthetic {size}^2: launches {launches} != one soft for the dataset")
+        with uncounted():
+            soft_k, kp_k = ds.render()
+        with plain_rasterizer():
+            soft_p, kp_p = ds.render()
+        proj, faces, _ = ds.project()
+        K = rc.auto_K(F, size, 192)
+        overflow = int(rc.bin_overflow_counts(proj, faces, size, K).max())
+        mask_err = (soft_k - soft_p).abs().max().item()
+        agree = ((soft_k > 0.5) == (soft_p > 0.5)).float().mean().item()
+        kp_err = (kp_k - kp_p).abs().max().item()
+        log(f"[synthetic] {SYN_FRAMES} frames at {size}^2, K={K} (F={F}): 1 soft launch; "
+            f"kernel vs plain soft mask max err {mask_err:.3g}, thresholded masks equal on "
+            f"{agree:.6f} of the pixels, keypoints max err {kp_err:.3g}; bin overflow "
+            f"max {overflow}; mask coverage {float((soft_k > 0.5).float().mean()):.4f}")
+        require(mask_err <= 2e-4, f"synthetic {size}^2: soft mask error {mask_err} > 2e-4")
+        require(agree >= 0.999, f"synthetic {size}^2: thresholded masks agree on {agree}")
+        require(kp_err == 0.0, f"synthetic {size}^2: keypoints differ by {kp_err}")
+        require(overflow == 0, f"synthetic {size}^2: bins overflow by {overflow} faces")
+        renders[size] = proj
+    small_t = build_template(**SYN_SMALL["template"])
+    small = SyntheticConfig(num_frames_total=8, clip_len=2, image_size=SYN_SMALL["img"],
+                            num_kps=SYN_SMALL["template"]["num_kps"], seed=1)
+    with uncounted():
+        d_card = SyntheticDataset(small_t, small, device=device)
+    d_cpu = SyntheticDataset(small_t, small, device="cpu")
+    agree = float((d_card.masks == d_cpu.masks).mean())
+    kp_err = float(np.abs(d_card.kps - d_cpu.kps).max())
+    log(f"[synthetic] {SYN_SMALL['img']}^2 subdivide 2, card vs CPU: masks equal on "
+        f"{agree:.6f} of the pixels, keypoints max err {kp_err:.3g}")
+    require(agree >= 0.999 and kp_err <= 1e-5,
+            f"synthetic card vs cpu: masks {agree}, keypoints {kp_err}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    res = demo.run_demo(SYN_STEPS, device=device)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n_eval = 2 * demo.NUM_BATCHES
+    require(launches == only(soft=1 + SYN_STEPS + n_eval, hard=SYN_STEPS + n_eval,
+                             soft_bwd=SYN_STEPS),
+            f"synthetic demo launches {launches} != 1 soft for the render, 1 soft + 1 hard + "
+            f"1 soft_bwd per train step ({SYN_STEPS}) and 1 soft + 1 hard per eval step "
+            f"({n_eval})")
+    before, after, losses = res["before"], res["after"], res["losses"][::demo.LOG_EVERY]
+    log(f"[synthetic] run_demo {SYN_STEPS} steps, batch {demo.BATCH}, {demo.IMG}^2, bf16 nets: "
+        f"before {json.dumps(before)}, after {json.dumps(after)}; losses every "
+        f"{demo.LOG_EVERY} steps {[round(x, 4) for x in losses]}; {res['frames_per_s']:.2f} "
+        f"frames/s ({res['seconds']:.3f} s for the loop); peak memory {peak / 2**30:.3f} GiB; "
+        f"launches {launches}; card {card}")
+    require(np.isfinite(res["losses"]).all(), "synthetic demo: non-finite loss")
+    require(losses[-1] < losses[0],
+            f"synthetic demo: loss did not fall ({losses[0]} -> {losses[-1]})")
+    require(after["mean_iou"] >= before["mean_iou"],
+            f"synthetic demo: IoU fell ({before['mean_iou']} -> {after['mean_iou']})")
+
+    mods, step, ev, batches = res["mods"], res["train_step"], res["eval_step"], res["batches"]
+    with uncounted():
+        stacks = _sync_ops(torch, lambda: (step(batches[0]), ev(batches[1])))
+    for st in stacks[:3]:
+        log("[synthetic] synchronizing operation in a demo step:\n" + st)
+    log(f"[synthetic] sync debug mode: {len(stacks)} synchronizing operations in one train "
+        "step and one eval step")
+    require(not stacks, f"synthetic: {len(stacks)} synchronizing operations in a step")
+    with uncounted():
+        step_ms, _ = _mf_profile(torch, lambda: step(batches[0]),
+                                 "one demo train step (K=1280)", profile, tag="synthetic")
+
+    state = copy.deepcopy(mods.model.state_dict())
+    mods_f32 = dataclasses.replace(mods, cfg=dataclasses.replace(
+        mods.cfg, model=dataclasses.replace(mods.cfg.model, dtype="float32")))
+
+    def one_step():
+        mods.model.load_state_dict(state)
+        mods.model.zero_grad(set_to_none=True)
+        loss, _ = monocular.forward(mods_f32, batches[0], train=True)
+        loss.backward()
+        return loss.detach(), _grads(mods.model)
+
+    with uncounted(), deterministic_algorithms(torch):
+        loss_k, g_k = one_step()
+        loss_k2, g_k2 = one_step()
+        with plain_rasterizer():
+            loss_p, g_p = one_step()
+    mods.model.load_state_dict(state)
+    floor = _grad_errors(g_k2, g_k, "synthetic kernels vs kernels", 1e-4)
+    worst = _grad_errors(g_k, g_p, "synthetic kernels vs plain", 1e-4)
+    loss_err = _rel_vec(torch, loss_k, loss_p)
+    log(f"[synthetic] one train step from the same state, f32 nets, deterministic "
+        f"algorithms, kernels vs plain: loss {float(loss_k):.8g} vs {float(loss_p):.8g} (rel "
+        f"{loss_err:.3g}), worst gradient rel error {worst[1]:.3g} ({worst[0]}); kernels vs "
+        f"kernels {floor[1]:.3g} ({floor[0]}), loss rel {_rel_vec(torch, loss_k2, loss_k):.3g}")
+    require(loss_err <= 1e-4, f"synthetic kernels vs plain: loss rel error {loss_err}")
+
+    with torch.no_grad():
+        aux = ev(batches[0])
+        views = cam_utils.orthographic_proj_withz(aux["pred_v"], batches[0]["sfm_pose"],
+                                                  offset_z=mods.cfg.train.offset_z)
+    with uncounted():
+        kernels = _raster_alone(torch, views, mods.faces, demo.IMG, "synthetic", plain=True)
+        kernels["soft render"] = _raster_alone(torch, renders[demo.IMG], mods.faces, demo.IMG,
+                                               "synthetic", ("soft",), plain=True)["soft"]
+    secs = time.perf_counter() - t_phase
+    log(f"[synthetic] phase {secs:.2f} s")
+    return {"launches": launches, "before": before, "after": after,
+            "frames_per_s": res["frames_per_s"], "peak_gib": peak / 2**30,
+            "step_device_ms": step_ms, "kernels": kernels, "seconds": secs}
+
+
 # the multiframe phase: the CLI's defaults on a TigDog-format tree of
 # MF_VIDEOS clips of MF_FRAMES frames at MF_RAW (tools/tigdog_fixture.py):
 # 32 frames, so 4 steps of batch 8 an epoch
@@ -904,43 +1125,12 @@ def _mf_grad_errors(g_a, g_b, what, bound):
 
 def _mf_kernels(torch, proj, faces, S, net_hw, nb, tag="multiframe"):
     """Each kernel alone at the multiframe step's shapes, with its bound:
-    the rasterizer kernels on the first train step's projected views (their
-    C entries on counts and outputs made once, time_cuda), the bytes each
-    must move (as phase_kernels counts them) and, for the operations, every
-    (pixel, slot) pair inside the cull windows at the inside and distance
-    tests' cost (OPS_TEST) plus OPS_PER_FACE per (view, face), which is
-    less than the work (pairs in radius cost OPS_PER_PAIR); the cost
-    volume's pass at `nb` pairs (time_device per shape) against its bytes.
-    Returns {name: (ms, bound_ms, bound_by)}."""
+    the rasterizer kernels on the first train step's projected views
+    (_raster_alone); the cost volume's pass at `nb` pairs (time_device per
+    shape) against its bytes. Returns {name: (ms, bound_ms, bound_by)}."""
     from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
-    from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer as ras
-    from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
 
-    V = proj.shape[0]
-    K = rc.auto_K(faces.shape[0], S, ras.DEFAULT_K)
-    out = {}
-    for mode, soft, blur in (("soft", True, rc.BLUR_RADIUS), ("hard", False, 0.0),
-                             ("soft_bwd", True, rc.BLUR_RADIUS)):
-        table, idx, th, tw = rc.bin_faces(proj, faces, S, K, blur)
-        counts = (idx >= 0).sum(-1, dtype=torch.int32)
-        needed = rc.cull_pair_counts(rc.cull_windows(table, S, th, tw, blur, soft), idx, th,
-                                     tw)["needed"]
-        ops = needed * OPS_TEST[mode] + V * faces.shape[0] * OPS_PER_FACE[mode]
-        if mode == "soft_bwd":
-            dS = torch.ones(V, S, S, device=proj.device)
-            grad = torch.empty_like(table)
-            nbytes = 2 * table.numel() * 4 + counts.numel() * 4 + dS.numel() * 4
-            ms = time_cuda(lambda: rc.launch_bwd(rc.bwd_entry(), table, counts, dS, grad, S, th,
-                                                 tw, rc.SIGMA, blur), 10)
-        else:
-            frags = rc.forward_cuda(table, idx, S, th, tw, rc.SIGMA, blur, soft)
-            nbytes = (table.numel() + idx.numel() + counts.numel() + 5 * V * S * S) * 4
-            ms = time_cuda(lambda: rc.launch_fwd(rc.fwd_entry(), table, idx, counts, frags, S,
-                                                 th, tw, rc.SIGMA, blur, soft), 10)
-        out[mode] = (ms, *_bound(ops, nbytes))
-        log(f"[{tag}] {mode} at {V} views: kernel alone {ms:.4f} ms, bound "
-            f"{out[mode][1]:.4f} ms ({out[mode][2]}; {nbytes / 1e6:.1f} MB, {needed} needed "
-            f"pairs)")
+    out = _raster_alone(torch, proj, faces, S, tag)
     fn = cc.entry()
     pass_ms = pass_bound = 0.0
     for md, C, H, W, per_pass in _flow_shapes(net_hw):
@@ -953,6 +1143,55 @@ def _mf_kernels(torch, proj, faces, S, net_hw, nb, tag="multiframe"):
     out["cost volume pass"] = (pass_ms, pass_bound, "bytes")
     log(f"[{tag}] cost volumes of one pass at {nb} pairs (15 launches), alone "
         f"{pass_ms:.4f} ms, bound {pass_bound:.4f} ms (bytes)")
+    return out
+
+
+def _raster_alone(torch, proj, faces, S, tag, modes=("soft", "hard", "soft_bwd"),
+                  plain=False):
+    """Each rasterizer kernel of `modes` alone on the projected views `proj`
+    at S^2 (its C entry on counts and outputs made once, time_cuda), with
+    its bound: the bytes each must move (as phase_kernels counts them) and,
+    for the operations, every (pixel, slot) pair inside the cull windows at
+    the inside and distance tests' cost (OPS_TEST) plus OPS_PER_FACE per
+    (view, face), which is less than the work (pairs in radius cost
+    OPS_PER_PAIR). Returns {mode: (ms, bound_ms, bound_by)}, and with
+    `plain` {mode: (ms, bound_ms, bound_by, plain version's ms)}."""
+    from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer as ras
+    from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
+
+    V = proj.shape[0]
+    K = rc.auto_K(faces.shape[0], S, ras.DEFAULT_K)
+    out = {}
+    for mode, soft, blur in (("soft", True, rc.BLUR_RADIUS), ("hard", False, 0.0),
+                             ("soft_bwd", True, rc.BLUR_RADIUS)):
+        if mode not in modes:
+            continue
+        table, idx, th, tw = rc.bin_faces(proj, faces, S, K, blur)
+        counts = (idx >= 0).sum(-1, dtype=torch.int32)
+        needed = rc.cull_pair_counts(rc.cull_windows(table, S, th, tw, blur, soft), idx, th,
+                                     tw)["needed"]
+        ops = needed * OPS_TEST[mode] + V * faces.shape[0] * OPS_PER_FACE[mode]
+        if mode == "soft_bwd":
+            dS = torch.ones(V, S, S, device=proj.device)
+            grad = torch.empty_like(table)
+            nbytes = 2 * table.numel() * 4 + counts.numel() * 4 + dS.numel() * 4
+            ms = time_cuda(lambda: rc.launch_bwd(rc.bwd_entry(), table, counts, dS, grad, S, th,
+                                                 tw, rc.SIGMA, blur), 10)
+            run_plain = functools.partial(rc.backward_plain, table, idx, dS, S, th, tw,
+                                          rc.SIGMA, blur)
+        else:
+            frags = rc.forward_cuda(table, idx, S, th, tw, rc.SIGMA, blur, soft)
+            nbytes = (table.numel() + idx.numel() + counts.numel() + 5 * V * S * S) * 4
+            ms = time_cuda(lambda: rc.launch_fwd(rc.fwd_entry(), table, idx, counts, frags, S,
+                                                 th, tw, rc.SIGMA, blur, soft), 10)
+            run_plain = functools.partial(rc.forward_plain, table, idx, S, th, tw, rc.SIGMA,
+                                          blur, soft)
+        out[mode] = (ms, *_bound(ops, nbytes))
+        if plain:
+            out[mode] += (time_cuda(run_plain, 3, 1),)
+        log(f"[{tag}] {mode} at {V} views, {S}^2, K={K}: kernel alone {ms:.4f} ms, bound "
+            f"{out[mode][1]:.4f} ms ({out[mode][2]}; {nbytes / 1e6:.1f} MB, {needed} needed "
+            f"pairs)" + (f", plain version {out[mode][3]:.3f} ms" if plain else ""))
     return out
 
 
@@ -983,8 +1222,12 @@ def _mf_profile(torch, call, what, path, tag="multiframe", host_top=0, trace=Non
         torch.cuda.synchronize()
     if trace:
         prof.export_chrome_trace(trace)
+    # kernels only: a user annotation (Optimizer.step's range) also has a
+    # device-side event, whose span covers kernels counted on their own
+    on_host = {e.key for e in prof.key_averages() if "cpu" in str(e.device_type).lower()}
     events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None and "cuda" in str(e.device_type).lower()]
+              if "cuda" in str(getattr(e, "device_type", "")).lower() and e.key not in on_host
+              and not getattr(e, "is_user_annotation", False)]
     kinds = _kinds(events)
     total = sum(kinds.values())
     top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total",
@@ -1428,8 +1671,6 @@ def phase_evaluate(torch, device, card, train_opts, tmp, profile=None):
     with `profile`, device ms of one TTO iteration by kind ((profile of 20
     iterations - profile of 10) / 10) and the bin pass alone."""
     import os
-    import traceback
-    import warnings
 
     from acfm_video_3d_reconstruction_tpu_torch.cli import multiframe_evaluate as mfe
     from acfm_video_3d_reconstruction_tpu_torch.cli import multiframe_main
@@ -1550,12 +1791,6 @@ def phase_evaluate(torch, device, card, train_opts, tmp, profile=None):
         return functools.partial(real_make(mods, dataclasses.replace(tto, num_iter=n), nf, trace),
                                  mean_shape, lbs, delta, cam)
 
-    stacks = []
-
-    def show(message, *a, **kw):
-        if "called a synchronizing" in str(message):
-            stacks.append(f"{message}\n" + "".join(traceback.format_stack(limit=10)[:-1]))
-
     def host_s(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1574,16 +1809,7 @@ def phase_evaluate(torch, device, card, train_opts, tmp, profile=None):
 
     fn = tto_fn(EVAL_TRACE_ITERS)
     fn(db)
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = show
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn(db)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
+    stacks = _sync_ops(torch, lambda: fn(db))
     for st in stacks[:3]:
         log("[evaluate] synchronizing operation in the TTO call:\n" + st)
     log(f"[evaluate] sync debug mode: {len(stacks)} synchronizing operations in a TTO call of "
@@ -1997,6 +2223,7 @@ def main(argv=None) -> int:
     train_fps, train_spread, train_launches = phase_train(torch, mods, batch, args.profile)
     del mods, batch
     driver = phase_driver(torch, device, card)
+    synthetic = phase_synthetic(torch, device, card, args.profile)
 
     records += phase_flow_kernels(torch, device)
     phase_flow_small(torch, device)
@@ -2012,7 +2239,8 @@ def main(argv=None) -> int:
         r["launches"] = sum(launches[counter[r["name"]]]
                             for launches in (eval_launches, train_launches, flow_launches,
                                              driver["train_launches"], driver["eval_launches"],
-                                             multiframe["launches"], evaluate["launches"]))
+                                             synthetic["launches"], multiframe["launches"],
+                                             evaluate["launches"]))
     n_eval, n_train = EVAL_WINDOWS * EVAL_STEPS, TRAIN_WINDOWS * TRAIN_STEPS
     n_flow = FLOW_WINDOWS * FLOW_CALLS
     log("[result] " + json.dumps({
@@ -2022,6 +2250,11 @@ def main(argv=None) -> int:
         "driver_frames_per_s": driver["frames_per_s"],
         "driver_loader_batches_per_s": driver["loader_batches_per_s"],
         "driver_save_s": driver["save_s"],
+        "synthetic_demo_steps": SYN_STEPS, "synthetic_before": synthetic["before"],
+        "synthetic_after": synthetic["after"],
+        "synthetic_frames_per_s": synthetic["frames_per_s"],
+        "synthetic_step_device_ms": synthetic["step_device_ms"],
+        "synthetic_peak_gib": synthetic["peak_gib"],
         "batch": B, "image_size": IMG, "eval_steps": n_eval, "train_steps": n_train,
         "flow_pairs_per_call": FLOW_B, "flow_net_hw": FLOW_NET_HW, "flow_calls": n_flow,
         "launches_per_eval_step": {k: v / n_eval for k, v in eval_launches.items()},

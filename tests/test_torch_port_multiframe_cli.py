@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_port_driver import _jax_flags
+from test_torch_port_data_extra import write_still_fixtures
 from test_torch_port_multiframe import _jitted_flax_init, _tol
 
 from acfm_video_3d_reconstruction_tpu.cli import multiframe_main as jcli
@@ -339,20 +340,30 @@ def test_driver_nan_dump(tmp_path, monkeypatch):
 
 def test_cli_flags_and_refusals(pkl_root, tmp_path, monkeypatch):
     """The JAX CLI's flags with its defaults, plus --device (default cuda);
-    the PASCAL / ImageNet mixes, not ported, refused with the missing module
-    named; the visualisation panels (--display_freq > 0) accepted and passed
-    on to the driver loop; of_loss without a flow source refused as JAX
-    refuses it; no card and no --device cpu, an exit."""
+    the PASCAL / ImageNet mixes (--expand_pascal, --expand_imgnet) reaching
+    build_video_dataset and building the mixed dataset (YTVIS, PASCAL,
+    ImageNet; tests/test_torch_port_data_extra.py holds it against the JAX
+    CLI's); the visualisation panels (--display_freq > 0) accepted and
+    passed on to the driver loop; of_loss without a flow source refused as
+    JAX refuses it; no card and no --device cpu, an exit."""
     want = dict(_jax_flags(os.path.join(ROOT, "acfm_video_3d_reconstruction_tpu", "cli",
                                         "multiframe_main.py")), device="cuda")
     assert tcli.default_opts() == want
     a = tcli.parse(["--warmup", "--texture=False", "--mirror=0", "--num_guesses", "4"])
     assert (a.warmup, a.texture, a.mirror, a.num_guesses) == (True, False, False, 4)
     o = _opts(tcli, pkl_root, tmp_path, "r", device="cpu")
-    for flag, module in (("expand_pascal", "data/pascal.py"), ("expand_imgnet",
-                                                               "data/objects.py")):
-        with pytest.raises(NotImplementedError, match=module):
-            tcli.train(dict(o, **{flag: True}))
+    mixes = {}
+    real_build = tcli.build_video_dataset
+    monkeypatch.setattr(tcli, "build_video_dataset",
+                        lambda opts: mixes.setdefault("ds", real_build(opts)))
+    monkeypatch.setattr(tcli.driver, "run_multiframe_training",
+                        lambda cfg, template, loader, *a, **kw: mixes.setdefault("n", a[1]))
+    tcli.train(dict(o, **write_still_fixtures(tmp_path / "stills", num_kps=16),
+                    tmp_dir=str(tmp_path / "mix"), of_loss_wt=0.0))
+    assert [type(d).__name__ for d in mixes["ds"].datasets] == [
+        "YTVISPklDataset", "PascalVideoDataset", "ImageNetQuadVideoDataset"]
+    assert mixes["n"] == 10  # 2 YTVIS clips of 3 frames + 2 stills as 2-frame clips
+    monkeypatch.undo()
     seen = {}
     monkeypatch.setattr(tcli.driver, "run_multiframe_training",
                         lambda cfg, *a, **kw: seen.setdefault("display_freq",
@@ -391,8 +402,13 @@ def test_port_sources_import_no_jax():
     paths += [os.path.join(tools, f) for f in sorted(os.listdir(tools))
               if f.startswith("torch_") and f.endswith(".py")]
     assert os.path.join(tools, "torch_tto_drift.py") in paths
+    assert os.path.join(tools, "torch_train_synthetic_demo.py") in paths
     for d, _, files in os.walk(os.path.join(ROOT, "acfm_video_3d_reconstruction_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    port = os.path.join(ROOT, "acfm_video_3d_reconstruction_tpu_torch")
+    for new in ("data/synthetic.py", "data/pascal.py", "data/objects.py", "data/kp_splits.py",
+                "tools/sfm_init.py", "tools/__init__.py"):
+        assert os.path.join(port, new) in paths, new
     bad = [(p, m) for p in paths for m in _imports(p) if m.split(".")[0] in _JAX_ROOTS]
     assert not bad, bad
     assert len(paths) > 60

@@ -406,8 +406,8 @@ class TestCullWindows:
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, chip_smoke.py and the fixture writers of
-    tools/ import without JAX, flax, orbax, absl or the JAX package;
+    """Every module of the port, chip_smoke.py, the port's synthetic demo
+    and the fixture writers of tools/ import without JAX, flax, orbax, absl or the JAX package;
     importing chip_smoke loads neither PIL nor cv2 (the data path imports
     them where it reads or resizes)."""
     code = (
@@ -416,6 +416,7 @@ def test_port_imports_no_jax():
         "import tools.tigdog_fixture, tools.cub_fixture\n"
         "host = [k for k in sys.modules if k.split('.')[0] in ('PIL', 'cv2')]\n"
         "assert not host, host\n"
+        "import tools.torch_train_synthetic_demo\n"
         "import acfm_video_3d_reconstruction_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
