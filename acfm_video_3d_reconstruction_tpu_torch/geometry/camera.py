@@ -6,6 +6,7 @@ in [-1, 1] with x right and y down; z is depth, smaller is closer.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -106,6 +107,14 @@ def az_el_quat_biases(num_guesses: int) -> torch.Tensor:
             w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
         ]))
     return torch.from_numpy(np.stack(biases).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def az_el_quat_biases_on(num_guesses: int, device: torch.device) -> torch.Tensor:
+    """az_el_quat_biases(num_guesses) on `device`, built and uploaded once
+    per (G, device): a step that gathers from it queues without waiting for
+    a pageable upload. The cached tensor is read only."""
+    return az_el_quat_biases(num_guesses).to(device)
 
 
 def decode_az_el_camera(raw: torch.Tensor, scale_lr_decay: float = 0.05,

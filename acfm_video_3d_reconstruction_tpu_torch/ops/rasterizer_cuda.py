@@ -338,10 +338,18 @@ def _tile(x, image_size, tile_h, tile_w):
     return x.reshape(B, n_by * n_bx, tile_h * tile_w)
 
 
+def _bins_with_faces(valid_all, k0, kc):
+    """The flat indices of the bins (B * T of them) with a valid slot in
+    [k0, k0 + kc): the others leave every output as it is in that step."""
+    B, T, K = valid_all.shape
+    return valid_all.reshape(B * T, K)[:, k0:k0 + kc].any(-1).nonzero()[:, 0]
+
+
 def forward_plain(table, idx, image_size, tile_h, tile_w, sigma, blur_radius,
                   soft, slot_chunk: int = SLOT_CHUNK) -> BinnedFrags:
     """Plain PyTorch version of the kernel: the same binned function, walked
-    over the slots `slot_chunk` at a time so it fits in memory at full width.
+    over the slots `slot_chunk` at a time so it fits in memory at full width,
+    each step over the bins with a face in its slots.
 
     Within a chunk the z-buffer takes the first minimal slot and across
     chunks a strict <, which equals the kernel's slot-by-slot strict <.
@@ -350,27 +358,33 @@ def forward_plain(table, idx, image_size, tile_h, tile_w, sigma, blur_radius,
     B, T, K, _ = table.shape
     P = tile_h * tile_w
     px, py = _bin_pixels(T, image_size, tile_h, tile_w, table.device)
-    px, py = px[None, :, :, None], py[None, :, :, None]  # (1, T, P, 1)
+    px, py = px[:, :, None], py[:, :, None]  # (T, P, 1)
     valid_all = idx >= 0
-    S = table.new_zeros(B, T, P)
-    zbuf = table.new_full((B, T, P), BIG)
-    b0 = table.new_zeros(B, T, P)
-    b1 = table.new_zeros(B, T, P)
-    slot = torch.full((B, T, P), -1, dtype=torch.long, device=table.device)
+    rows_table, rows_valid = table.reshape(B * T, K, 9), valid_all.reshape(B * T, K)
+    S = table.new_zeros(B * T, P)
+    zbuf = table.new_full((B * T, P), BIG)
+    b0 = table.new_zeros(B * T, P)
+    b1 = table.new_zeros(B * T, P)
+    slot = torch.full((B * T, P), -1, dtype=torch.long, device=table.device)
     n_valid = int(valid_all.sum(-1).max())
     for k0 in range(0, n_valid, slot_chunk):
-        c = table[:, :, None, k0:k0 + slot_chunk, :]  # (B, T, 1, kc, 9)
-        valid = valid_all[:, :, None, k0:k0 + slot_chunk]
-        log1mp, z, bb0, bb1, in_r = _face_geometry(c, px, py, sigma, blur_radius, soft)
-        S = S + torch.where(valid, log1mp, torch.zeros_like(log1mp)).sum(-1)
-        zm = torch.where(in_r & valid, z, torch.full_like(z, BIG))
+        rows = _bins_with_faces(valid_all, k0, slot_chunk)
+        c = rows_table[rows, None, k0:k0 + slot_chunk][None]  # (1, R, 1, kc, 9)
+        valid = rows_valid[rows, None, k0:k0 + slot_chunk][None]
+        t = rows % T
+        log1mp, z, bb0, bb1, in_r = _face_geometry(c, px[t][None], py[t][None], sigma,
+                                                   blur_radius, soft)
+        S[rows] = S[rows] + torch.where(valid, log1mp, torch.zeros_like(log1mp)).sum(-1)[0]
+        zm = torch.where(in_r & valid, z, torch.full_like(z, BIG))[0]
         j = torch.argmin(zm, dim=-1, keepdim=True)  # first minimal slot
         z_best = torch.gather(zm, -1, j)[..., 0]
-        better = z_best < zbuf
-        zbuf = torch.where(better, z_best, zbuf)
-        b0 = torch.where(better, torch.gather(bb0, -1, j)[..., 0], b0)
-        b1 = torch.where(better, torch.gather(bb1, -1, j)[..., 0], b1)
-        slot = torch.where(better, j[..., 0] + k0, slot)
+        z_old = zbuf[rows]
+        better = z_best < z_old
+        zbuf[rows] = torch.where(better, z_best, z_old)
+        b0[rows] = torch.where(better, torch.gather(bb0[0], -1, j)[..., 0], b0[rows])
+        b1[rows] = torch.where(better, torch.gather(bb1[0], -1, j)[..., 0], b1[rows])
+        slot[rows] = torch.where(better, j[..., 0] + k0, slot[rows])
+    S, zbuf, b0, b1, slot = (v.reshape(B, T, P) for v in (S, zbuf, b0, b1, slot))
     covered = slot >= 0
     p2f = torch.gather(idx, 2, slot.clamp(min=0).reshape(B, T, P).to(torch.long))
     p2f = torch.where(covered, p2f, torch.full_like(p2f, -1))
@@ -425,17 +439,20 @@ def backward_plain(table, idx, dS, image_size, tile_h, tile_w, sigma,
     """
     B, T, K, _ = table.shape
     px, py = _bin_pixels(T, image_size, tile_h, tile_w, table.device)
-    px, py = px[None, :, :, None], py[None, :, :, None]  # (1, T, P, 1)
-    A = _tile(dS.float(), image_size, tile_h, tile_w)[..., None]  # (B, T, P, 1)
+    px, py = px[:, :, None], py[:, :, None]  # (T, P, 1)
+    A = _tile(dS.float(), image_size, tile_h, tile_w).reshape(B * T, -1, 1)  # (B*T, P, 1)
     valid_all = idx >= 0
-    grad = table.new_zeros(B, T, K, 9)
+    rows_table, rows_valid = table.reshape(B * T, K, 9), valid_all.reshape(B * T, K)
+    grad = table.new_zeros(B * T, K, 9)
     n_valid = int(valid_all.sum(-1).max())
     for k0 in range(0, n_valid, SLOT_CHUNK):
-        c = table[:, :, None, k0:k0 + SLOT_CHUNK, :]  # (B, T, 1, kc, 9)
-        rows = _soft_grad_rows(c, px, py, A, sigma, blur_radius)
-        valid = valid_all[:, :, k0:k0 + SLOT_CHUNK, None]
-        grad[:, :, k0:k0 + SLOT_CHUNK, :6] = torch.where(valid, rows, torch.zeros_like(rows))
-    return grad
+        rows = _bins_with_faces(valid_all, k0, SLOT_CHUNK)
+        c = rows_table[rows, None, k0:k0 + SLOT_CHUNK][None]  # (1, R, 1, kc, 9)
+        t = rows % T
+        g = _soft_grad_rows(c, px[t][None], py[t][None], A[rows][None], sigma, blur_radius)[0]
+        valid = rows_valid[rows, k0:k0 + SLOT_CHUNK, None]
+        grad[rows, k0:k0 + SLOT_CHUNK, :6] = torch.where(valid, g, torch.zeros_like(g))
+    return grad.reshape(B, T, K, 9)
 
 
 # ------------------------------------------------------------ CUDA kernels --

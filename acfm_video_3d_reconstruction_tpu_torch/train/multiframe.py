@@ -183,7 +183,7 @@ def decode_selected_cameras(mods: MFModules, cams_table: torch.Tensor,
     if mp.az_el_cam:
         quat_bias = None
         if mp.az_el_quat_bias:
-            quat_bias = cam_utils.az_el_quat_biases(G).to(raw.device)[sel]
+            quat_bias = cam_utils.az_el_quat_biases_on(G, raw.device)[sel]
         cams = cam_utils.decode_az_el_camera(
             raw, scale_lr_decay=mp.scale_lr_decay, scale_bias=mp.scale_bias,
             az_range_deg=mp.az_euler_range, el_range_deg=mp.el_euler_range,

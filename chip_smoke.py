@@ -92,9 +92,12 @@ Phases, each of which raises (exit code 1) on failure:
      step's forward and backward through the kernels against the same
      through the plain rasterizer and correlation_plain (deterministic
      algorithms, so the floor is 0: loss matrix, probs and every gradient
-     within 1e-4, mean_v, behind the solve's adjoint, within 1e-3); each
-     kernel alone at the step's 128 views and 8 pairs with its bound; with
-     --profile, device ms of one flow call and one train step by kind.
+     within 1e-4, mean_v, behind the solve's adjoint, within 1e-3); no
+     synchronizing operation in a warm-up step, a train step, a flow call
+     and a train step of the az-el multiplex with its rotation biases
+     (--az_el_cam --az_el_quat_bias); each kernel alone at the step's 128
+     views and 8 pairs with its bound; with --profile, device ms of one flow
+     call and one train step by kind.
   6b. evaluate: multiframe evaluation as users run it after training, the
      evaluate CLI's `evaluate` (cli/multiframe_evaluate.py) on phase 6's
      tree and latest checkpoint at the CLI's defaults, 100 TTO iterations,
@@ -113,6 +116,19 @@ Phases, each of which raises (exit code 1) on failure:
      panels (make_multiframe_vis_fn, VisRenderer, diff_vp), each kernel
      alone at the TTO's 16 views with its bound; with --profile, device ms
      of one TTO iteration by kind.
+  6c. mini_tigdog: tools/torch_mini_tigdog_parity.py cut in epochs only (60
+     synthetic videos at 144^2 with known GT cameras, rendered through the
+     kernels and again on the CPU for the first videos; the multiframe CLI's
+     train with the tool's options for MT_EPOCHS epochs, 32 views a step at
+     128^2, K = 1280; launches exact; the main loss falling; one step
+     kernels vs plain; the kernels alone at 32 views; three evaluation
+     columns in-process: trained, gauge-aligned GT camera, TTO, with exact
+     launches and the TTO loss lower on every batch).
+  6d. mini_cub: tools/torch_mini_cub_parity.py cut in steps only (536
+     synthetic birds at 192^2 in the CUB schema, card vs CPU for the first
+     images; MC_STEPS monocular train steps with exact launches, the loss
+     falling, no synchronizing operation in a step; IoU and PCK before and
+     after).
 The launch counters of every kernel are zeroed just before each main path
 and read just after it.
 The second-to-last lines are the card's name and power limit, then one
@@ -860,15 +876,19 @@ SYN_FRAMES, SYN_SIZES, SYN_STEPS = 32, (128, 256), 200
 SYN_SMALL = dict(img=64, template=dict(subdivide=2, num_lbs=6, tex_size=2, num_kps=4))
 
 
-def _demo():
-    """tools/torch_train_synthetic_demo.py, imported from this checkout."""
+def _tool(name):
+    """tools/<name>.py, imported from this checkout."""
     import importlib
     import os
 
     tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
     if tools not in sys.path:
         sys.path.insert(0, tools)
-    return importlib.import_module("torch_train_synthetic_demo")
+    return importlib.import_module(name)
+
+
+def _demo():
+    return _tool("torch_train_synthetic_demo")
 
 
 def _sync_ops(torch, fn):
@@ -1490,6 +1510,8 @@ def phase_multiframe(torch, device, card, tmp, profile=None, **overrides):
     require(p_err <= 1e-4, f"multiframe kernels vs plain: probs rel {p_err} > 1e-4")
     log(f"[multiframe] peak memory of the step {peak_step / 2**30:.3f} GiB")
 
+    sync = _mf_sync_checks(torch, mods, batch, flow_fn, upload, k)
+
     prof = {}
     if profile is not None:
         step = make_train_step(mods, k=k)
@@ -1526,7 +1548,41 @@ def phase_multiframe(torch, device, card, tmp, profile=None, **overrides):
     return {"launches": launches, "warmup_steps": n_w, "train_steps": n_t,
             "time_per_iter_train": [r["time_per_iter"] for r in main_recs],
             "peak_run_gib": peak_run / 2**30, "peak_step_gib": peak_step / 2**30,
-            "overflow": overflow, "profile": prof, "kernels": kernels, "opts": o}
+            "overflow": overflow, "profile": prof, "kernels": kernels, "opts": o,
+            "sync_ops": sync}
+
+
+def _mf_sync_checks(torch, mods, batch, flow_fn, upload, k):
+    """No synchronizing operation (_sync_ops) in one warm-up step, one train
+    step and one flow call of the trained modules on the run's first batch,
+    nor in one train step of an az-el build of the same model (--az_el_cam
+    --az_el_quat_bias: the bias table gathered per step) after its first
+    step (which builds the table once per device). Every launch uncounted.
+    Returns {call: number of synchronizing operations}, all 0."""
+    from acfm_video_3d_reconstruction_tpu_torch.train import multiframe as mf
+
+    cfg = dataclasses.replace(mods.cfg, multiplex=dataclasses.replace(
+        mods.cfg.multiplex, az_el_cam=True, az_el_quat_bias=True))
+    az = mf.build(cfg, mods.template, mods.mpx.probs.shape[0], seed=2, device=mods.device)
+    az_step = mf.make_train_step(az, k=k)
+    warm_step, step = mf.make_warmup_step(mods), mf.make_train_step(mods, k=k)
+    calls = {"warm-up step": lambda: warm_step(batch), "train step": lambda: step(batch),
+             "flow call": lambda: flow_fn(dict(upload)),
+             "az-el train step (--az_el_cam --az_el_quat_bias)": lambda: az_step(batch)}
+    counts = {}
+    with uncounted():
+        az_step(batch)
+        for what, call in calls.items():
+            stacks = _sync_ops(torch, call)
+            for st in stacks[:3]:
+                log(f"[multiframe] synchronizing operation in the {what}:\n" + st)
+            counts[what] = len(stacks)
+    del az
+    log("[multiframe] sync debug mode, synchronizing operations per call: "
+        + json.dumps(counts))
+    bad = {what: n for what, n in counts.items() if n}
+    require(not bad, f"multiframe: synchronizing operations {bad}")
+    return counts
 
 
 @contextlib.contextmanager
@@ -1970,6 +2026,379 @@ def phase_evaluate(torch, device, card, train_opts, tmp, profile=None):
             "profile": prof, "kernels": kernels}
 
 
+# the mini_tigdog phase: tools/torch_mini_tigdog_parity.py at its full
+# widths (60 videos, 144^2 raw, 128^2 crops), its training options cut in
+# epochs only, three of its evaluation columns; the videos rendered again
+# on the CPU and the epochs of training
+MT_CPU_VIDEOS, MT_EPOCHS = 2, 10
+MT_COLUMNS, MT_TTO_ITERS = ("after", "gtcam_al", "tto"), 60
+# the mini_cub phase: tools/torch_mini_cub_parity.py's 512 + 24 images at
+# 192^2; the images rendered again on the CPU and the train steps
+MC_CPU_IMAGES, MC_STEPS = 4, 200
+# tests/test_torch_port_synthetic.py's keypoint bound on the demo's
+# template (subdivide 3, 12 handles), in [-1, 1] units
+KP_BOUND = 1e-4
+
+
+def _falling(losses, what):
+    """The mean of the last tenth of `losses` below the first tenth's."""
+    require(len(losses) >= 2 and np.isfinite(losses).all(),
+            f"{what}: {len(losses)} losses, or a non-finite one")
+    n = max(1, len(losses) // 10)
+    first, last = float(np.mean(losses[:n])), float(np.mean(losses[-n:]))
+    require(last < first, f"{what}: loss did not fall (first tenth {first}, last {last})")
+    return first, last
+
+
+def _tto_recorder(real_make, calls):
+    """predictor.make_tto_step_fn's stand-in: the CLI's refiner, recording
+    per batch (loss at iteration 0 (a 0-step refine, uncounted), final
+    loss)."""
+    def make(mods, tto, num_frames, trace_vert2kp=None):
+        refine = real_make(mods, tto, num_frames, trace_vert2kp)
+        zero_steps = real_make(mods, dataclasses.replace(tto, num_iter=0), num_frames)
+
+        def run(mean_shape, lbs, delta, cam, batch):
+            with uncounted():
+                loss0 = zero_steps(mean_shape, lbs, delta, cam, batch)[2]
+            out = refine(mean_shape, lbs, delta, cam, batch)
+            calls.append((float(loss0), float(out[2])))
+            return out
+        return run
+    return make
+
+
+def phase_mini_tigdog(torch, device, card, tmp):
+    """The mini-TigDog parity run (tools/torch_mini_tigdog_parity.py) cut in
+    epochs only: the multiframe CLI pair trained and evaluated to
+    convergence on synthetic clips with known GT cameras.
+
+    a. generate() at the tool's widths (60 videos of 6 frames at 144^2):
+       exactly 1 soft + 1 hard launch per video, no bin overflow (K = F =
+       1280). The first MT_CPU_VIDEOS videos again on the CPU (the plain
+       rasterizer): sfm_poses, bboxes and the background (every pixel both
+       masks leave off the mesh: the numpy draws) bit-equal, masks equal on
+       >= 99.9% of the pixels, landmarks within KP_BOUND (in raw pixels),
+       the frames within 1e-4 where both masks cover the pixel and the hard
+       z-buffers pick the same face (the solve's rounding, card against
+       CPU, reaches the face normals).
+    b. multiframe_main.train with the tool's options (G 4, batch 4 clips x 2
+       frames at 128^2, 32 views a step, subdivide 3, 12 handles, 8
+       keypoints, kp 30, mask 5, texture off, of_loss_wt 0, warm-up 2 reps,
+       init_camera_emb, no mirror) for MT_EPOCHS of its 40 epochs. Launches,
+       exactly: per warm-up step 1 soft + 1 soft_bwd; per train step 1 soft
+       + 1 soft_bwd (texture off: no hard render of the mirrored view; flow
+       off: no cost volume); the init_camera_emb pass none; with S the
+       steps of an epoch, num_reps * S warm-up and MT_EPOCHS * S train steps.
+       Every metrics.jsonl record finite; the main loop's total_loss falling
+       (the last tenth of its logged steps below the first tenth).
+    c. One train step (k = 4, 32 views at K = 1280) from the trained state on
+       the first train batch through the kernels and through the plain
+       rasterizer, under deterministic algorithms: loss matrix and probs
+       within rel 1e-4 per entry, every gradient within vector rel 1e-4,
+       mean_v within the solve's 1e-3. Each rasterizer kernel alone at the
+       step's 32 views (_raster_alone).
+    d. multiframe_evaluate.evaluate in-process with the tool's options for
+       the columns MT_COLUMNS (trained; gauge-aligned GT camera; TTO of the
+       tool's 60 iterations). Launches per batch, exactly: 1 soft without
+       TTO; with N TTO iterations N+2 soft (one an iteration, the final
+       loss, the evaluated mask), N soft_bwd, no hard (the flow term, which
+       takes the hard visibility, is off) and no cost volume. The TTO loss
+       lower than at iteration 0 on every batch; IoU and PCK finite and in
+       [0, 1]. Logs the three columns."""
+    import os
+    import pickle
+
+    from acfm_video_3d_reconstruction_tpu_torch.cli import multiframe_evaluate as mfe
+    from acfm_video_3d_reconstruction_tpu_torch.cli import multiframe_main
+    from acfm_video_3d_reconstruction_tpu_torch.eval import predictor
+    from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer as ras
+    from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
+    from acfm_video_3d_reconstruction_tpu_torch.train import multiframe as mf
+
+    tool = _tool("torch_mini_tigdog_parity")
+    t_phase = time.perf_counter()
+    template = tool.build_template()
+    root = os.path.join(tmp, "mini_tigdog")
+    n_v, RAW = tool.N_VIDEOS, tool.RAW
+    zero_launches()
+    t0 = time.perf_counter()
+    info = tool.generate(root, template, device)
+    gen_s = time.perf_counter() - t0
+    gen_launches = read_launches()
+    require(gen_launches == only(soft=n_v, hard=n_v),
+            f"mini_tigdog generate: launches {gen_launches} != 1 soft + 1 hard per video ({n_v})")
+    require(info["overflow"] == 0, f"mini_tigdog generate: bins drop {info['overflow']} faces")
+    cpu = tool.generate(os.path.join(tmp, "mini_tigdog_cpu"), template, "cpu",
+                        videos=MT_CPU_VIDEOS)
+    agree, kp_err, shade_err = [], 0.0, 0.0
+    for v in range(MT_CPU_VIDEOS):
+        pkls = []
+        for r in (root, os.path.join(tmp, "mini_tigdog_cpu")):
+            with open(os.path.join(r, "horse", f"video_{v:03d}.pkl"), "rb") as fh:
+                pkls.append(pickle.load(fh))
+        card_v, cpu_v = pkls
+        for key in ("sfm_poses", "bboxes"):
+            require(np.array_equal(card_v[key], cpu_v[key]),
+                    f"mini_tigdog video {v}: {key} card {card_v[key][0]} cpu {cpu_v[key][0]}")
+        mc, mp_ = card_v["segmentations"], cpu_v["segmentations"]
+        agree.append(float((mc == mp_).mean()))
+        lc, lp = card_v["landmarks"], cpu_v["landmarks"]
+        kp_err = max(kp_err, float(np.abs(lc[..., :2] - lp[..., :2]).max()))
+        require(np.array_equal(lc[..., 2], lp[..., 2]), f"mini_tigdog video {v}: visibility")
+        off = (mc == 0) & (mp_ == 0)
+        require(np.array_equal(card_v["video"][off], cpu_v["video"][off]),
+                f"mini_tigdog video {v}: background differs")
+        same = ((mc == 1) & (mp_ == 1)
+                & (info["pix_to_face"][v] == cpu["pix_to_face"][v]).reshape(mc.shape))
+        shade_err = max(shade_err, float(np.abs(card_v["video"][same]
+                                                - cpu_v["video"][same]).max()))
+    log(f"[mini_tigdog] generated {n_v} videos of {tool.T_RAW} frames at {RAW}^2 in "
+        f"{gen_s:.2f} s; launches {gen_launches}; bin overflow 0; card vs CPU, first "
+        f"{MT_CPU_VIDEOS} videos: sfm_poses, bboxes, background bit-equal, masks equal on "
+        f"{agree} of the pixels, landmarks max err {kp_err:.3g} px, frames where the faces "
+        f"agree max err {shade_err:.3g}")
+    require(min(agree) >= 0.999, f"mini_tigdog card vs cpu: masks agree on {agree}")
+    require(kp_err <= KP_BOUND * (RAW - 1) / 2, f"mini_tigdog card vs cpu: landmarks {kp_err}")
+    require(shade_err <= 1e-4, f"mini_tigdog card vs cpu: frames {shade_err}")
+
+    o = tool.train_opts(root, MT_EPOCHS, device=str(device))
+    seen = {"warm": 0, "train": 0}
+    real_warm, real_train, real_vis = mf.make_warmup_step, mf.make_train_step, ras.soft_silhouette_vis
+
+    def counting_warm(mods):
+        step = real_warm(mods)
+
+        def run(batch):
+            seen["warm"] += 1
+            return step(batch)
+        return run
+
+    def counting_train(mods, **kw):
+        step = real_train(mods, **kw)
+
+        def run(batch):
+            seen["train"] += 1
+            if "batch" not in seen:
+                seen.update(batch=batch, mods=mods, k=kw["k"])
+            return step(batch)
+        return run
+
+    def watching_vis(verts, *a, **kw):
+        if seen["train"] == 1 and "views" not in seen:  # the first train step's
+            seen["views"] = verts.detach()
+        return real_vis(verts, *a, **kw)
+
+    mf.make_warmup_step, mf.make_train_step = counting_warm, counting_train
+    ras.soft_silhouette_vis = watching_vis
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        mods = multiframe_main.train(o)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = read_launches()
+    finally:
+        mf.make_warmup_step, mf.make_train_step = real_warm, real_train
+        ras.soft_silhouette_vis = real_vis
+    n_w, n_t, spe = seen["warm"], seen["train"], mods.steps_per_epoch
+    require(n_w == o["num_reps"] * spe and n_t == MT_EPOCHS * spe,
+            f"mini_tigdog: {n_w} warm-up and {n_t} train steps at {spe} steps an epoch")
+    require(train_launches == only(soft=n_w + n_t, soft_bwd=n_w + n_t),
+            f"mini_tigdog train launches {train_launches} != 1 soft + 1 soft_bwd per warm-up "
+            f"({n_w}) and train ({n_t}) step")
+    with open(os.path.join(o["checkpoint_dir"], o["name"], "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh if line.strip()]
+    for r in recs:
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        require(not bad, f"mini_tigdog: non-finite {bad} at step {r['step']}")
+    main_loss = [r["total_loss"] for r in recs if "total_loss" in r]
+    first, last = _falling(main_loss, "mini_tigdog main loop")
+    log(f"[mini_tigdog] train, the tool's options, {MT_EPOCHS} epochs: {n_w} warm-up + {n_t} "
+        f"train steps ({spe} an epoch) in {train_s:.2f} s; launches {train_launches}; main-loop "
+        f"total_loss first tenth {first:.5g}, last tenth {last:.5g} over {len(main_loss)} "
+        f"logged steps; card {card}")
+    log("[mini_tigdog] main-loop total_loss every log_every: "
+        + json.dumps([round(x, 4) for x in main_loss]))
+
+    batch, k = seen["batch"], seen["k"]
+    state = copy.deepcopy(mods.model.state_dict())
+    mpx_state = copy.deepcopy(mods.mpx.state_dict())
+
+    def one_step(plain):
+        mods.model.load_state_dict(state)
+        mods.mpx.load_state_dict(mpx_state)
+        mods.model.zero_grad(set_to_none=True)
+        mods.mpx.zero_grad(set_to_none=True)
+        with deterministic_algorithms(torch), \
+                (plain_rasterizer() if plain else contextlib.nullcontext()):
+            loss, aux = mf.forward(mods, batch, k=k, train=True, drop_deform=True)
+            aux["pred_v"].retain_grad()
+            loss.backward()
+        grads = _mf_grads(mods)
+        grads["pred_v"] = aux["pred_v"].grad.detach().cpu()
+        return aux["loss_matrix"].detach(), aux["probs"].detach(), grads
+
+    with uncounted():
+        ref, plain = one_step(False), one_step(True)
+    mods.model.load_state_dict(state)
+    mods.mpx.load_state_dict(mpx_state)
+
+    def rel_entries(x, y):
+        return ((x - y).abs() / y.abs().clamp_min(1e-12)).max().item()
+
+    lm_err, p_err = rel_entries(plain[0], ref[0]), rel_entries(plain[1], ref[1])
+    worst, solve_fed = _mf_grad_errors(plain[2], ref[2], "mini_tigdog kernels vs plain", 1e-4)
+    views = seen["views"]
+    log(f"[mini_tigdog] one train step from the trained state (k={k}, {views.shape[0]} views "
+        f"at {o['img_size']}^2, K={rc.auto_K(mods.faces.shape[0], o['img_size'], ras.DEFAULT_K)}), "
+        f"deterministic, "
+        f"kernels vs plain: loss matrix rel {lm_err:.3g}, probs rel {p_err:.3g}, worst "
+        f"gradient rel {worst[1]:.3g} ({worst[0]}), {solve_fed}")
+    require(lm_err <= 1e-4, f"mini_tigdog kernels vs plain: loss matrix rel {lm_err} > 1e-4")
+    require(p_err <= 1e-4, f"mini_tigdog kernels vs plain: probs rel {p_err} > 1e-4")
+    with uncounted():
+        kernels = _raster_alone(torch, views, mods.faces, o["img_size"], "mini_tigdog")
+    del mods
+
+    N = MT_TTO_ITERS
+    real_make = predictor.make_tto_step_fn
+    columns, eval_launches = {}, dict.fromkeys(read_launches(), 0)
+    for key in MT_COLUMNS:
+        eo = tool.eval_opts(o, tool.plan_flags(key, N))
+        calls = []
+        predictor.make_tto_step_fn = _tto_recorder(real_make, calls)
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            stats = mfe.evaluate(eo)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            predictor.make_tto_step_fn = real_make
+        n_b, res = len(stats.ious), stats.results()
+        if eo["optimize"]:
+            want = only(soft=n_b * (N + 2), soft_bwd=n_b * N)
+            require(len(calls) == n_b and all(c[1] < c[0] for c in calls),
+                    f"mini_tigdog {key}: TTO loss (iteration 0, final) per batch {calls}")
+        else:
+            want = only(soft=n_b)
+        require(launches == want, f"mini_tigdog {key}: launches {launches} != {want} "
+                f"({n_b} batches)")
+        require(n_b > 0 and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in res.values()),
+                f"mini_tigdog {key}: {n_b} batches, {res}")
+        for name, n in launches.items():
+            eval_launches[name] += n
+        columns[key] = res
+        log(f"[mini_tigdog] evaluate {key} {tool.plan_flags(key, N)}: {n_b} batches in "
+            f"{secs:.2f} s; launches {launches}; {json.dumps(res)}"
+            + (f"; TTO loss per batch (iteration 0, final) "
+               f"{json.dumps([[round(x, 6) for x in c] for c in calls])}" if calls else ""))
+    secs = time.perf_counter() - t_phase
+    log(f"[mini_tigdog] phase {secs:.2f} s")
+    return {"launches": {name: gen_launches[name] + train_launches[name] + eval_launches[name]
+                         for name in gen_launches},
+            "train_launches": train_launches, "warmup_steps": n_w, "train_steps": n_t,
+            "loss_first_last_tenth": (first, last), "columns": columns, "kernels": kernels,
+            "seconds": secs}
+
+
+def phase_mini_cub(torch, device, card, tmp):
+    """The mini-CUB parity run (tools/torch_mini_cub_parity.py) cut in steps
+    only: the monocular model trained on synthetic birds in the CUB schema.
+
+    a. generate() at the tool's widths (512 + 24 images at 192^2): exactly 1
+       soft + 1 hard launch per GEN_CHUNK images, no bin overflow (K = F =
+       1280). The first MC_CPU_IMAGES images rendered again on the CPU (the
+       plain rasterizer) against what the card's tree holds: rel_path, the
+       bbox and the sfm entry (scale, trans, rot) bit-equal, the mask equal
+       on >= 99.9% of its pixels, the parts within KP_BOUND (raw pixels)
+       and their visibility row equal, the PNG within one level on >= 99.9%
+       of its pixels; S within KP_BOUND.
+    b. run_parity for MC_STEPS steps (the tool's loop: batch 8 at 128^2,
+       bf16 nets, GT pose, texture on). Launches, exactly: per train step 1
+       soft + 1 hard + 1 soft_bwd; per eval batch 1 soft + 1 hard (the test
+       split before and after, the train split after). The loss falling
+       (the last tenth of the steps below the first tenth); no synchronizing
+       operation in a train step. Logs IoU and PCK before and after."""
+    import os
+
+    import cv2
+    import scipy.io as sio
+
+    tool = _tool("torch_mini_cub_parity")
+    t_phase = time.perf_counter()
+    template = tool.tig.build_template(tex_size=4)
+    root = os.path.join(tmp, "mini_cub")
+    n_img, RAW = tool.N_TRAIN + tool.N_TEST, tool.RAW
+    chunks = -(-n_img // tool.GEN_CHUNK)
+    zero_launches()
+    t0 = time.perf_counter()
+    tool.generate(root, template, device=device)
+    gen_s = time.perf_counter() - t0
+    gen_launches = read_launches()
+    require(gen_launches == only(soft=chunks, hard=chunks),
+            f"mini_cub generate: launches {gen_launches} != 1 soft + 1 hard per "
+            f"{tool.GEN_CHUNK} images ({chunks})")
+
+    cams, deform = tool.draw(n_img)
+    r = tool.render(template, cams[:MC_CPU_IMAGES], deform[:MC_CPU_IMAGES], "cpu")
+    require(r["overflow"] == 0, f"mini_cub: bins drop {r['overflow']} faces")
+    load = functools.partial(sio.loadmat, struct_as_record=False, squeeze_me=True)
+    images = load(os.path.join(root, "cache", "data", "train_cub_cleaned.mat"))["images"]
+    sfm_mat = load(os.path.join(root, "cache", "sfm", "anno_train.mat"))
+    agree, png_close, kp_err = [], [], 0.0
+    for i in range(MC_CPU_IMAGES):
+        rel, img, mask, bbox, parts, sfm = tool.image_record(i, "train", i, r, cams)
+        a, s = images[i], sfm_mat["sfm_anno"][i]
+        require(a.rel_path == rel, f"mini_cub image {i}: {a.rel_path} != {rel}")
+        require(all(getattr(a.bbox, key) == v for key, v in bbox.items()),
+                f"mini_cub image {i}: bbox card {vars(a.bbox)} cpu {bbox}")
+        for key, want in zip(("scale", "trans", "rot"), sfm):
+            require(np.array_equal(np.atleast_1d(getattr(s, key)), np.atleast_1d(want)),
+                    f"mini_cub image {i}: sfm {key}")
+        agree.append(float((a.mask == mask).mean()))
+        kp_err = max(kp_err, float(np.abs(a.parts[:2] - parts[:2]).max()))
+        require(np.array_equal(a.parts[2], parts[2]), f"mini_cub image {i}: visibility")
+        png = cv2.cvtColor(cv2.imread(os.path.join(root, "images", rel)), cv2.COLOR_BGR2RGB)
+        png_close.append(float((np.abs(png.astype(np.int16) - img) <= 1).mean()))
+    s_err = float(np.abs(sfm_mat["S"] - r["S"].T).max())
+    log(f"[mini_cub] generated {tool.N_TRAIN} + {tool.N_TEST} images at {RAW}^2 in "
+        f"{gen_s:.2f} s; launches {gen_launches}; card vs CPU, first {MC_CPU_IMAGES} images: "
+        f"rel_path, bbox, sfm bit-equal, masks equal on {agree}, PNGs within one level on "
+        f"{png_close} of the pixels, parts max err {kp_err:.3g} px, S max err {s_err:.3g}")
+    require(min(agree) >= 0.999, f"mini_cub card vs cpu: masks agree on {agree}")
+    require(min(png_close) >= 0.999, f"mini_cub card vs cpu: PNGs within one level {png_close}")
+    require(kp_err <= KP_BOUND * RAW / 2, f"mini_cub card vs cpu: parts {kp_err}")
+    require(s_err <= KP_BOUND, f"mini_cub card vs cpu: S {s_err}")
+
+    n_eval = 2 * -(-tool.N_TEST // tool.BATCH) + -(-tool.N_TRAIN // tool.BATCH)
+    zero_launches()
+    res = tool.run_parity(root, MC_STEPS, device, log=lambda m: log(f"[mini_cub] {m}"))
+    launches = read_launches()
+    require(launches == only(soft=MC_STEPS + n_eval, hard=MC_STEPS + n_eval,
+                             soft_bwd=MC_STEPS),
+            f"mini_cub launches {launches} != 1 soft + 1 hard + 1 soft_bwd per train step "
+            f"({MC_STEPS}) and 1 soft + 1 hard per eval batch ({n_eval})")
+    first, last = _falling(res["losses"], "mini_cub")
+    with uncounted():
+        stacks = _sync_ops(torch, lambda: res["train_step"](res["batch"]))
+    for st in stacks[:3]:
+        log("[mini_cub] synchronizing operation in a train step:\n" + st)
+    require(not stacks, f"mini_cub: {len(stacks)} synchronizing operations in a train step")
+    secs = time.perf_counter() - t_phase
+    log(f"[mini_cub] {MC_STEPS} steps of batch {tool.BATCH} at {tool.IMG}^2 in "
+        f"{res['seconds']:.2f} s; launches {launches}; loss first tenth {first:.5g}, last "
+        f"tenth {last:.5g}; before {json.dumps(res['before'])}, after "
+        f"{json.dumps(res['after'])}, train split after {json.dumps(res['after_train'])}; no "
+        f"synchronizing operation in a train step; card {card}")
+    log(f"[mini_cub] phase {secs:.2f} s")
+    return {"launches": {name: gen_launches[name] + launches[name] for name in launches},
+            "before": res["before"], "after": res["after"], "after_train": res["after_train"],
+            "loss_first_last_tenth": (first, last), "seconds": secs}
+
+
 def _flow_shapes(net_hw):
     """The cost volume's distinct (md, C, H, W) of one pass of the net at
     net_hw, finest last per md, with its launches per two-stage pass:
@@ -2231,6 +2660,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         multiframe = phase_multiframe(torch, device, card, tmp, args.profile)
         evaluate = phase_evaluate(torch, device, card, multiframe["opts"], tmp, args.profile)
+        mini_tigdog = phase_mini_tigdog(torch, device, card, tmp)
+        mini_cub = phase_mini_cub(torch, device, card, tmp)
 
     counter = {"raster_fwd_soft": "soft", "raster_fwd_hard": "hard",
                "raster_bwd_soft": "soft_bwd", "correlation_md4": "corr_md4",
@@ -2240,7 +2671,8 @@ def main(argv=None) -> int:
                             for launches in (eval_launches, train_launches, flow_launches,
                                              driver["train_launches"], driver["eval_launches"],
                                              synthetic["launches"], multiframe["launches"],
-                                             evaluate["launches"]))
+                                             evaluate["launches"], mini_tigdog["launches"],
+                                             mini_cub["launches"]))
     n_eval, n_train = EVAL_WINDOWS * EVAL_STEPS, TRAIN_WINDOWS * TRAIN_STEPS
     n_flow = FLOW_WINDOWS * FLOW_CALLS
     log("[result] " + json.dumps({
@@ -2268,7 +2700,17 @@ def main(argv=None) -> int:
         "multiframe_peak_step_gib": multiframe["peak_step_gib"],
         "evaluate_launches": evaluate["launches"], "evaluate_runs": evaluate["runs"],
         "evaluate_ms_per_tto_iter": evaluate["ms_per_tto_iter"],
-        "evaluate_ms_per_tto_iter_in_cli": evaluate["ms_per_tto_iter_in_cli"]}))
+        "evaluate_ms_per_tto_iter_in_cli": evaluate["ms_per_tto_iter_in_cli"],
+        "multiframe_sync_ops": multiframe["sync_ops"],
+        "mini_tigdog_epochs": MT_EPOCHS, "mini_tigdog_warmup_steps": mini_tigdog["warmup_steps"],
+        "mini_tigdog_train_steps": mini_tigdog["train_steps"],
+        "mini_tigdog_loss_first_last_tenth": mini_tigdog["loss_first_last_tenth"],
+        "mini_tigdog_columns": mini_tigdog["columns"],
+        "mini_tigdog_seconds": mini_tigdog["seconds"], "mini_cub_steps": MC_STEPS,
+        "mini_cub_before": mini_cub["before"], "mini_cub_after": mini_cub["after"],
+        "mini_cub_after_train": mini_cub["after_train"],
+        "mini_cub_loss_first_last_tenth": mini_cub["loss_first_last_tenth"],
+        "mini_cub_seconds": mini_cub["seconds"]}))
 
     print(card)
     print(json.dumps({"kernels": records}))

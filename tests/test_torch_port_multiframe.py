@@ -149,24 +149,64 @@ def _jitted_flax_init():
         fnn.Module.init = real
 
 
-@pytest.fixture(scope="module")
-def jax_build():
+# the camera multiplex of each step case: the quaternion table (the
+# default), the az-el table, and the az-el table with the per-hypothesis
+# pi/4 rotation biases
+MULTIPLEX = {"quat": {}, "az_el": dict(az_el_cam=True),
+             "az_el_bias": dict(az_el_cam=True, az_el_quat_bias=True)}
+
+
+def _jax_build(**mp):
     with _jitted_flax_init():
         mods, (tx_full, tx_warm), state = jmf.build(
-            _cfg(jcfg), jbuild_template(**TEMPLATE), N_FRAMES, jax.random.PRNGKey(0))
+            _cfg(jcfg, **mp), jbuild_template(**TEMPLATE), N_FRAMES, jax.random.PRNGKey(0))
     return mods, tx_full, tx_warm, state
+
+
+@pytest.fixture(scope="module")
+def jax_build():
+    return _jax_build()
+
+
+@pytest.fixture(scope="module")
+def jax_build_az_el():
+    """The az-el build (a 6-wide camera table), built once: the rotation
+    biases change only the cameras' decode, so the az_el_bias cases run it
+    under their own config. The table is init_az_el_multiplex's plus a
+    seeded spread of every column: the init alone (scale and translation
+    0, elevation and cyclo-rotation 0) shows the symmetric mean shape in
+    exact 180-degree views, whose z-buffers tie between faces at pixel
+    centres, and the two solves' f32 roundings (1e-5 in pred_v) tip such
+    ties into other vertex visibilities for the flow term; the spread also
+    drives every input of the decode."""
+    mods, tx_full, tx_warm, state = _jax_build(**MULTIPLEX["az_el"])
+    cams = np.asarray(state.multiplex.cams)
+    spread = np.random.default_rng(5).normal(size=cams.shape) * [1.0, 0.05, 0.05, 0.3, 0.3, 0.3]
+    mpx = dataclasses.replace(state.multiplex, cams=jnp.asarray((cams + spread).astype(np.float32)))
+    return mods, tx_full, tx_warm, state.replace(multiplex=mpx)
+
+
+def _build_for(request, multiplex):
+    """(mods, tx_full, tx_warm, state) of the JAX build for a MULTIPLEX key."""
+    if multiplex == "quat":
+        return request.getfixturevalue("jax_build")
+    mods, tx_full, tx_warm, state = request.getfixturevalue("jax_build_az_el")
+    cfg = _cfg(jcfg, **MULTIPLEX[multiplex])
+    return dataclasses.replace(mods, cfg=cfg), tx_full, tx_warm, state
 
 
 _PORT = {}
 
 
-def _port(state, probs=None):
-    """A fresh port MFModules holding the JAX state (one build, deep-copied);
-    `probs` replaces the probability table on both sides' terms."""
-    if "mods" not in _PORT:
-        _PORT["mods"] = tmf.build(_cfg(tcfg), ttemplate.build_template(**TEMPLATE), N_FRAMES,
-                                  device="cpu")
-    mods = copy.deepcopy(_PORT["mods"])
+def _port(state, probs=None, multiplex="quat"):
+    """A fresh port MFModules holding the JAX state (one build per
+    MULTIPLEX key, deep-copied); `probs` replaces the probability table on
+    both sides' terms."""
+    if multiplex not in _PORT:
+        _PORT[multiplex] = tmf.build(_cfg(tcfg, **MULTIPLEX[multiplex]),
+                                     ttemplate.build_template(**TEMPLATE), N_FRAMES,
+                                     device="cpu")
+    mods = copy.deepcopy(_PORT[multiplex])
     mpx = state.multiplex
     from_jax.load_jax_multiframe(mods, _tree(state.params), _tree(state.batch_stats),
                                  _tree(state.lpips_params),
@@ -232,14 +272,18 @@ def _probs_with_ties(seed):
     return p
 
 
-@pytest.fixture(scope="module", params=[G, 2], ids=["k=G", "k<G"])
-def one_step(request, jax_build):
+@pytest.fixture(scope="module", params=[("quat", G), ("quat", 2), ("az_el", G),
+                                        ("az_el_bias", 2)],
+                ids=["k=G", "k<G", "az_el-k=G", "az_el_bias-k<G"])
+def one_step(request):
     """One train step on both sides from the same state: jax.grad of the
     JAX forward with optax's update and scatter_probs, and the port's
     make_train_step. At k < G the probability table holds distinct values
-    and ties, so the top-k selection differs per frame."""
-    k = request.param
-    mods_j, tx_full, _, state = jax_build
+    and ties, so the top-k selection differs per frame. The az-el cases
+    decode the 6-wide table (decode_selected_cameras' az-el branch), the
+    last with the rotation biases gathered for the selected hypotheses."""
+    multiplex, k = request.param
+    mods_j, tx_full, _, state = _build_for(request, multiplex)
     probs = None
     if k < G:
         probs = _probs_with_ties(1)
@@ -250,7 +294,7 @@ def one_step(request, jax_build):
     with _wide_sigma_and_spies(captured):
         metrics_j, grads_j, new_j, probs_j, sel_j = _jax_train_step(mods_j, tx_full, k)(
             state, {key: jnp.asarray(v) for key, v in batch.items()})
-        mods = _port(state, probs)
+        mods = _port(state, probs, multiplex)
         before = {key: v.detach().clone() for key, v in mods.model.state_dict().items()}
         cams0 = mods.mpx.cams.detach().clone()
         metrics_t = tmf.make_train_step(mods, k=k)(tmf.to_device_batch(mods, batch))
@@ -371,7 +415,19 @@ def test_warmup_step_matches_jax(jax_build):
     probabilities written for every hypothesis (rtol 1e-3), the camera
     table's gradient (vector rel 0.05, through the mask) and its Adam(1e-2)
     step (decided elements within 1.1% of the rate), the model untouched."""
-    mods_j, _, tx_warm, state = jax_build
+    _check_warmup_step(jax_build)
+
+
+@pytest.mark.heavy
+@pytest.mark.parametrize("multiplex", ["az_el", "az_el_bias"])
+def test_warmup_step_az_el_matches_jax(request, multiplex):
+    """test_warmup_step_matches_jax's checks with the az-el camera table,
+    without and with the rotation biases."""
+    _check_warmup_step(_build_for(request, multiplex), multiplex)
+
+
+def _check_warmup_step(build, multiplex="quat"):
+    mods_j, _, tx_warm, state = build
     batch = _batch(2)
     jb = {key: jnp.asarray(v) for key, v in batch.items()}
     captured = {}
@@ -382,7 +438,7 @@ def test_warmup_step_matches_jax(jax_build):
             mods_j, c, state.multiplex, mean_shape, jb, 80)[0]))(state.multiplex.cams)
         new_j, wm_j = jmf.make_warmup_step(mods_j, tx_warm, face_chunk=80)(
             jax.tree_util.tree_map(jnp.array, state), jb)
-        mods = _port(state)
+        mods = _port(state, multiplex=multiplex)
         db = tmf.to_device_batch(mods, batch)
         mpx = mods.mpx.state()
         loss, _, _ = tmf.warmup_forward(mods, mpx.cams, mpx, mods.model.get_mean_shape().detach(),
@@ -656,6 +712,16 @@ def test_camera_functions_match_jax(case):
     else:
         got, want = tcam.az_el_quat_biases(8), jcam.az_el_quat_biases(8)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+def test_az_el_quat_biases_on_is_built_once_and_bit_identical():
+    """The per-(G, device) table the step gathers from: the same tensor on
+    every call, bit-identical to az_el_quat_biases (its float64 chain stored
+    in float32) and to the JAX package's."""
+    a = tcam.az_el_quat_biases_on(6, torch.device("cpu"))
+    assert tcam.az_el_quat_biases_on(6, torch.device("cpu")) is a
+    assert torch.equal(a, tcam.az_el_quat_biases(6))
+    np.testing.assert_array_equal(a.numpy(), np.asarray(jcam.az_el_quat_biases(6)))
 
 
 def _cot_verts(batch=3, subdivide=1):

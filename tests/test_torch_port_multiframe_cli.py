@@ -403,6 +403,8 @@ def test_port_sources_import_no_jax():
               if f.startswith("torch_") and f.endswith(".py")]
     assert os.path.join(tools, "torch_tto_drift.py") in paths
     assert os.path.join(tools, "torch_train_synthetic_demo.py") in paths
+    assert os.path.join(tools, "torch_mini_tigdog_parity.py") in paths
+    assert os.path.join(tools, "torch_mini_cub_parity.py") in paths
     for d, _, files in os.walk(os.path.join(ROOT, "acfm_video_3d_reconstruction_tpu_torch")):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     port = os.path.join(ROOT, "acfm_video_3d_reconstruction_tpu_torch")

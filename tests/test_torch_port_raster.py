@@ -407,7 +407,7 @@ class TestCullWindows:
 
 def test_port_imports_no_jax():
     """Every module of the port, chip_smoke.py, the port's synthetic demo
-    and the fixture writers of tools/ import without JAX, flax, orbax, absl or the JAX package;
+    and parity tools and the fixture writers of tools/ import without JAX, flax, orbax, absl or the JAX package;
     importing chip_smoke loads neither PIL nor cv2 (the data path imports
     them where it reads or resizes)."""
     code = (
@@ -417,6 +417,7 @@ def test_port_imports_no_jax():
         "host = [k for k in sys.modules if k.split('.')[0] in ('PIL', 'cv2')]\n"
         "assert not host, host\n"
         "import tools.torch_train_synthetic_demo\n"
+        "import tools.torch_mini_tigdog_parity, tools.torch_mini_cub_parity\n"
         "import acfm_video_3d_reconstruction_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
