@@ -24,6 +24,7 @@ from .. import config as cfg_lib
 from ..data.cub import CUBDataset, load_sfm_mean_shape
 from ..data.loader import DataLoader
 from ..models.template import build_template
+from ..parallel import mesh as pmesh
 from ..train import driver
 from ..utils.obj_io import load_obj
 
@@ -191,8 +192,10 @@ def build_cub_template(cfg: cfg_lib.Config, args):
 
 
 def train(cfg: cfg_lib.Config, template, dataset, args):
-    """The training run of `main` on a built dataset: returns (mods, opt)."""
-    device = check_device(args)
+    """The training run of `main` on a built dataset: returns (mods, opt).
+    Under torchrun every rank joins the group (parallel/mesh.py::
+    init_from_env) and trains on its block of each global batch."""
+    device = pmesh.init_from_env(check_device(args))
     loader = DataLoader(dataset, args.batch_size, shuffle=True)
     load_pretrained, load_lpips = make_pretrained_loaders(args)
     return driver.run_monocular_training(
@@ -213,7 +216,10 @@ def main(argv=None):
     dataset = CUBDataset(
         args.cub_dir, args.cub_cache_dir, split=args.split, img_size=args.img_size,
     )
-    return train(cfg, template, dataset, args)
+    try:
+        return train(cfg, template, dataset, args)
+    finally:
+        pmesh.shutdown()
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ from .. import config as cfg_lib
 from ..data import tigdog as tig
 from ..data.loader import DataLoader
 from ..models.template import build_template
+from ..parallel import mesh as pmesh
 from ..train import driver
 from ..utils.obj_io import load_obj
 from .monocular_main import check_device, make_pretrained_loaders, str2bool
@@ -261,8 +262,13 @@ def build_video_dataset(o: dict):
 
 
 def train(o: dict):
-    """Full multiframe training from an options dict; returns the modules."""
-    device = check_device(SimpleNamespace(device=o.get("device", "cuda")))
+    """Full multiframe training from an options dict; returns the modules.
+
+    Launched under torchrun (WORLD_SIZE, RANK, LOCAL_RANK in the
+    environment) every rank joins the group (parallel/mesh.py::
+    init_from_env; NCCL on cuda:LOCAL_RANK, gloo with --device cpu) and
+    trains on its block of each global batch."""
+    device = pmesh.init_from_env(check_device(SimpleNamespace(device=o.get("device", "cuda"))))
     if device.type == "cuda":
         # f32 throughout: the solve's Cholesky needs full-precision matmuls
         # (deform/solve.py), and the JAX reference runs f32 convolutions
@@ -272,9 +278,15 @@ def train(o: dict):
     template = build_mf_template(cfg)
 
     video_ds = build_video_dataset(o)
+    # rank 0 writes the frame cache; the other ranks read its layout after it
+    if not pmesh.is_main():
+        pmesh.barrier()
     n_frames, s2v, spv = tig.explode_to_frames(
-        video_ds, o["tmp_dir"], o["category"], o["num_training_frames"]
+        video_ds, o["tmp_dir"], o["category"], o["num_training_frames"],
+        write=pmesh.is_main(),
     )
+    if pmesh.is_main():
+        pmesh.barrier()
     print(f"Training samples (frames): {n_frames}")
 
     is_tigdog = o["category"] in ("horse", "tiger")
@@ -306,7 +318,10 @@ def train(o: dict):
 
 
 def main(argv=None):
-    return train(vars(parse(argv)))
+    try:
+        return train(vars(parse(argv)))
+    finally:
+        pmesh.shutdown()
 
 
 if __name__ == "__main__":

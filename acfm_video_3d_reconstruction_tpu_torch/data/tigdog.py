@@ -142,11 +142,13 @@ class ConcatDataset:
 
 
 def explode_to_frames(
-    dataset, tmp_dir: str, category: str, num_training_frames: int = 50
+    dataset, tmp_dir: str, category: str, num_training_frames: int = 50,
+    write: bool = True,
 ):
     """Cache-exploding step: write one pkl per frame (main.py:250-271).
 
-    Returns (num_frames_total, sample_to_vid, samples_per_vid).
+    Returns (num_frames_total, sample_to_vid, samples_per_vid). write=False
+    only returns them (the other ranks of a group, once rank 0 has written).
     """
     directory = osp.join(tmp_dir, category)
     os.makedirs(directory, exist_ok=True)
@@ -162,8 +164,9 @@ def explode_to_frames(
                 for k in ("video", "sfm_poses", "landmarks", "segmentations", "bboxes")
                 if k in sample
             }
-            with open(osp.join(directory, f"{save_counter}.pkl"), "wb") as f:
-                pickle.dump(new_sample, f)
+            if write:
+                with open(osp.join(directory, f"{save_counter}.pkl"), "wb") as f:
+                    pickle.dump(new_sample, f)
             sample_to_vid[save_counter] = i_sample
             samples_per_vid.setdefault(i_sample, []).append(save_counter)
             save_counter += 1

@@ -3,7 +3,10 @@ net_blocks.py / networks.py as the JAX package's models/nn_blocks.py does.
 
 BatchNorm follows flax: momentum 0.99 (torch momentum 0.01), eps 1e-5,
 and in train mode the running variance is updated with the biased batch
-variance, the one it normalises with (BatchNorm1d/2d below).
+variance, the one it normalises with (BatchNorm1d/2d below). Under a
+process group of more than one rank (parallel/mesh.py) the batch
+statistics are those of the global batch, as in the JAX package's one
+program over the data mesh.
 Initialisation follows the JAX package's initialisers (`init_weights`):
 flax's lecun_normal kernels and zero biases by default, N(0, 0.02) in
 ConvBNLeaky / FCBNLeaky, and each head's own override.
@@ -16,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh as pmesh
+
 BN_MOMENTUM = 0.01  # flax BatchNorm momentum 0.99
 
 
@@ -27,12 +32,15 @@ class _FlaxStats:
     train mode one F.batch_norm pass normalises and, at momentum 1, leaves
     the batch mean and unbiased variance in scratch buffers; the running
     buffers then take running = 0.99 * running + 0.01 * batch with the
-    variance rescaled by (n - 1) / n. Eval mode is torch's own.
+    variance rescaled by (n - 1) / n. Eval mode is torch's own. With more
+    than one rank, train mode takes the global statistics (`_global_forward`).
     """
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if pmesh.world_size() > 1:
+            return self._global_forward(x)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
@@ -41,6 +49,29 @@ class _FlaxStats:
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
         return y
+
+    def _global_forward(self, x):
+        """Train mode over the ranks' blocks of one global batch: the global
+        mean and biased variance in two passes (the sum and count, then the
+        sum of squared deviations; E[x^2] - E[x]^2 loses digits in f32), each
+        summed by a differentiable all_reduce, so the backward sees the
+        global statistics as the global program's does. The running buffers
+        take flax's update with the global biased variance. (torch's
+        SyncBatchNorm updates the running variance unbiased.)"""
+        dims = [0] + list(range(2, x.ndim))
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        xf = x.float()
+        count = xf.new_full((1,), xf.numel() // xf.shape[1])
+        s = pmesh.all_reduce_autograd(torch.cat([xf.sum(dims), count]))
+        mean = s[:-1] / s[-1]
+        xc = xf - mean.reshape(shape)
+        var = pmesh.all_reduce_autograd((xc * xc).sum(dims)) / s[-1]
+        y = xc * torch.rsqrt(var + self.eps).reshape(shape)
+        y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return y.to(x.dtype)
 
 
 class BatchNorm1d(_FlaxStats, nn.BatchNorm1d):

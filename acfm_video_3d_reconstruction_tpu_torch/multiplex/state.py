@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..geometry import camera as cam_utils
+from ..parallel import mesh as pmesh
 
 
 @dataclasses.dataclass
@@ -122,6 +123,18 @@ def select_hypotheses(arr: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     return torch.take_along_dim(arr, idx, dim=0)
 
 
+def gather_frame_rows(flat: torch.Tensor, rows: torch.Tensor):
+    """Under a process group, every rank's (frame ids (n,), rows (n, C))
+    brought together in rank order, which is the global batch's (B, T)
+    order (parallel/mesh.py::shard_batch keeps contiguous blocks); without
+    one, the inputs. One all_reduce of (n, 1 + C) f64, exact for f32 rows
+    and frame ids below 2^53."""
+    if not pmesh.active():
+        return flat, rows
+    both = pmesh.gather_rows(torch.cat([flat[:, None].double(), rows.double()], 1))
+    return both[:, 0].long(), both[:, 1:].to(rows.dtype)
+
+
 def scatter_probs(state: MultiplexState, frame_idx: torch.Tensor, sel: torch.Tensor,
                   new_probs: torch.Tensor) -> MultiplexState:
     """Write the soft-min probabilities back for the selected hypotheses:
@@ -132,12 +145,15 @@ def scatter_probs(state: MultiplexState, frame_idx: torch.Tensor, sel: torch.Ten
     it) takes the row of its LAST occurrence in (B, T) order: every
     occurrence is given that row before the write, so the write's order
     cannot matter (the JAX package's `.at[flat].set` leaves the winner
-    undefined). `state.probs` is written in place and returned in `state`.
+    undefined). Under a process group the rule holds over the global batch:
+    every rank writes every rank's rows (gather_frame_rows). `state.probs`
+    is written in place and returned in `state`.
     """
     flat = frame_idx.reshape(-1).long()
-    n = flat.shape[0]
-    rows = new_probs.new_zeros((n, state.num_guesses))
+    rows = new_probs.new_zeros((flat.shape[0], state.num_guesses))
     rows.scatter_(1, sel.long().T, new_probs.detach().T)
+    flat, rows = gather_frame_rows(flat, rows)
+    n = flat.shape[0]
     same = flat[:, None] == flat[None, :]
     last = torch.where(same, torch.arange(n, device=flat.device), -1).amax(1)
     with torch.no_grad():

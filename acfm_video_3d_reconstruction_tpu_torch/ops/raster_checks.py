@@ -153,7 +153,7 @@ def check_backward(table, idx, dS, size, th, tw, sigma, blur, what) -> tuple[flo
 
 def cull_census(table, idx, size, th, tw, sigma, blur, soft, chunk=32) -> dict:
     """Walks every valid (pixel, slot) pair of the bins in chunks of slots,
-    as forward_plain does, through _face_geometry and rc.cull_windows:
+    through _face_geometry and rc.cull_windows:
       excluded_in_radius: pairs outside their window that are in radius
                           (must be 0: the cull changes no output bit);
       excluded:           pairs outside their window;

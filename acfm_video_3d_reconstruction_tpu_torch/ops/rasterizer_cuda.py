@@ -15,9 +15,9 @@ So the port drops exactly the faces the TPU kernels drop.
 tensor and its plain PyTorch version (`forward_plain`) on a CPU tensor. It
 returns untiled (B, H, W) maps. In soft mode it goes through `SoftRasterize`,
 whose backward is the kernel csrc/raster_bwd.cu on a CUDA tensor and
-`backward_plain` on a CPU tensor. Both kernels skip the (pixel, slot) pairs
-outside `cull_windows`, which are out of radius; the plain versions walk
-every pair of a bin, and `cull_pair_counts` gives the pairs each walks.
+`backward_plain` on a CPU tensor. The kernels and the plain versions skip
+the (pixel, slot) pairs outside `cull_windows`, which are out of radius, and
+`cull_pair_counts` gives the pairs the kernels walk.
 """
 from __future__ import annotations
 
@@ -345,45 +345,92 @@ def _bins_with_faces(valid_all, k0, kc):
     return valid_all.reshape(B * T, K)[:, k0:k0 + kc].any(-1).nonzero()[:, 0]
 
 
+def _window_pairs(windows, rows_valid, rows, k0, kc, tile_h, tile_w):
+    """The valid pairs of bins `rows` and slots [k0, k0 + kc) whose pixel
+    lies in the slot's cull window, as flat indices into (len(rows), P, kc)
+    and their (row, pixel, slot) indices: windows (B*T, K, 4) and rows_valid
+    (B*T, K) as cull_windows and idx >= 0 give them. Every other pair is out
+    of radius."""
+    w = windows[rows, k0:k0 + kc].long()  # (R, kc, 4)
+    lx = torch.arange(tile_w, device=w.device)[None, :, None]
+    ly = torch.arange(tile_h, device=w.device)[None, :, None]
+    in_x = (lx >= w[:, None, :, 0]) & (lx <= w[:, None, :, 1])  # (R, tw, kc)
+    in_y = (ly >= w[:, None, :, 2]) & (ly <= w[:, None, :, 3])  # (R, th, kc)
+    pairs = in_y[:, :, None] & in_x[:, None] & rows_valid[rows, None, None, k0:k0 + kc]
+    flat = pairs.reshape(-1).nonzero()[:, 0]
+    per_row = tile_h * tile_w * kc
+    return flat, flat // per_row, flat % per_row // kc, flat % kc
+
+
+PAIR_BUDGET = 1 << 22  # pairs whose geometry one step of the plain walks evaluates
+
+
+def _chunk_groups(valid_all, windows, rows_valid, slot_chunk, tile_h, tile_w):
+    """The plain walks' chunks of `slot_chunk` slots, each (k0, kc, rows, f,
+    r, p, k) as _bins_with_faces and _window_pairs give them, in groups of
+    consecutive chunks with at most PAIR_BUDGET pairs (a larger chunk
+    alone): the geometry of a group's pairs is evaluated at once, elementwise,
+    and each chunk then reduces its own pairs in the walk's order."""
+    B, T, K = valid_all.shape
+    n_valid = int(valid_all.sum(-1).max())
+    group, n = [], 0
+    for k0 in range(0, n_valid, slot_chunk):
+        rows = _bins_with_faces(valid_all, k0, slot_chunk)
+        kc = min(slot_chunk, K - k0)
+        chunk = (k0, kc, rows) + _window_pairs(windows, rows_valid, rows, k0, kc, tile_h,
+                                               tile_w)
+        if group and n + len(chunk[3]) > PAIR_BUDGET:
+            yield group
+            group, n = [], 0
+        group.append(chunk)
+        n += len(chunk[3])
+    if group:
+        yield group
+
+
+def _group_pairs(group, T):
+    """A group's pairs as (bin row, slot, bin, pixel) index tensors and each
+    chunk's span in them."""
+    rows_of = torch.cat([rows[r] for _, _, rows, _, r, _, _ in group])
+    slots = torch.cat([k0 + k for k0, _, _, _, _, _, k in group])
+    pixels = torch.cat([p for _, _, _, _, _, p, _ in group])
+    ends = torch.tensor([len(c[3]) for c in group]).cumsum(0).tolist()
+    return rows_of, slots, rows_of % T, pixels, list(zip([0] + ends[:-1], ends))
+
+
 def forward_plain(table, idx, image_size, tile_h, tile_w, sigma, blur_radius,
                   soft, slot_chunk: int = SLOT_CHUNK) -> BinnedFrags:
     """Plain PyTorch version of the kernel: the same binned function, walked
     over the slots `slot_chunk` at a time so it fits in memory at full width,
     each step over the bins with a face in its slots.
 
-    Within a chunk the z-buffer takes the first minimal slot and across
-    chunks a strict <, which equals the kernel's slot-by-slot strict <.
-    S is summed chunk by chunk (another order than the kernel's).
+    Like the kernel it evaluates only the pairs inside `cull_windows`; the
+    others are out of radius, so they take the values that out-of-radius
+    pairs take (log term +0, z BIG) and every output bit stays as a walk of
+    every pair gives it. Within a chunk the z-buffer takes the first minimal
+    slot and across chunks a strict <, which equals the kernel's
+    slot-by-slot strict <. S is summed chunk by chunk (another order than
+    the kernel's).
     """
     B, T, K, _ = table.shape
     P = tile_h * tile_w
-    px, py = _bin_pixels(T, image_size, tile_h, tile_w, table.device)
-    px, py = px[:, :, None], py[:, :, None]  # (T, P, 1)
+    px, py = _bin_pixels(T, image_size, tile_h, tile_w, table.device)  # (T, P)
     valid_all = idx >= 0
     rows_table, rows_valid = table.reshape(B * T, K, 9), valid_all.reshape(B * T, K)
+    windows = cull_windows(table, image_size, tile_h, tile_w, blur_radius,
+                           soft).reshape(B * T, K, 4)
     S = table.new_zeros(B * T, P)
     zbuf = table.new_full((B * T, P), BIG)
     b0 = table.new_zeros(B * T, P)
     b1 = table.new_zeros(B * T, P)
     slot = torch.full((B * T, P), -1, dtype=torch.long, device=table.device)
-    n_valid = int(valid_all.sum(-1).max())
-    for k0 in range(0, n_valid, slot_chunk):
-        rows = _bins_with_faces(valid_all, k0, slot_chunk)
-        c = rows_table[rows, None, k0:k0 + slot_chunk][None]  # (1, R, 1, kc, 9)
-        valid = rows_valid[rows, None, k0:k0 + slot_chunk][None]
-        t = rows % T
-        log1mp, z, bb0, bb1, in_r = _face_geometry(c, px[t][None], py[t][None], sigma,
-                                                   blur_radius, soft)
-        S[rows] = S[rows] + torch.where(valid, log1mp, torch.zeros_like(log1mp)).sum(-1)[0]
-        zm = torch.where(in_r & valid, z, torch.full_like(z, BIG))[0]
-        j = torch.argmin(zm, dim=-1, keepdim=True)  # first minimal slot
-        z_best = torch.gather(zm, -1, j)[..., 0]
-        z_old = zbuf[rows]
-        better = z_best < z_old
-        zbuf[rows] = torch.where(better, z_best, z_old)
-        b0[rows] = torch.where(better, torch.gather(bb0[0], -1, j)[..., 0], b0[rows])
-        b1[rows] = torch.where(better, torch.gather(bb1[0], -1, j)[..., 0], b1[rows])
-        slot[rows] = torch.where(better, j[..., 0] + k0, slot[rows])
+    for group in _chunk_groups(valid_all, windows, rows_valid, slot_chunk, tile_h, tile_w):
+        rows_of, slots, t, pixels, spans = _group_pairs(group, T)
+        geometry = _face_geometry(rows_table[rows_of, slots], px[t, pixels], py[t, pixels],
+                                  sigma, blur_radius, soft)
+        for (k0, kc, rows, f, _, _, k), (a, b) in zip(group, spans):
+            _forward_chunk(S, zbuf, b0, b1, slot, rows, f, k, k0, kc, P,
+                           [g[a:b] for g in geometry])
     S, zbuf, b0, b1, slot = (v.reshape(B, T, P) for v in (S, zbuf, b0, b1, slot))
     covered = slot >= 0
     p2f = torch.gather(idx, 2, slot.clamp(min=0).reshape(B, T, P).to(torch.long))
@@ -391,10 +438,38 @@ def forward_plain(table, idx, image_size, tile_h, tile_w, sigma, blur_radius,
     return BinnedFrags(*(_untile(v, image_size, tile_h, tile_w) for v in (S, p2f, b0, b1, zbuf)))
 
 
-def _soft_grad_rows(c, px, py, A, sigma, blur_radius):
-    """The backward kernel's per-(pixel, slot) arithmetic (csrc/raster_bwd.cu),
-    summed over the pixels: c (B, T, 1, kc, 9) face rows, px/py (1, T, P, 1),
-    A (B, T, P, 1) -> (B, T, kc, 6) d(sum A*S)/d[ax ay bx by cx cy]."""
+def _forward_chunk(S, zbuf, b0, b1, slot, rows, f, k, k0, kc, P, geometry):
+    """One chunk's step of forward_plain over the (bin row, pixel) positions
+    with a pair in it (the others add +0 to S and keep the z-buffer): its
+    pairs' geometry (at flat indices f of (len(rows), P, kc), slots k)
+    placed over the positions' kc slots, S summed over the slots, the z-test against the
+    running buffers."""
+    log1mp_n, z_n, b0_n, b1_n, in_r = geometry
+    pos, inverse = torch.unique(f // kc, return_inverse=True)
+    at = inverse * kc + k
+    n = len(pos) * kc
+    log1mp, zm = S.new_zeros(n), S.new_full((n,), BIG)
+    bb0, bb1 = S.new_zeros(n), S.new_zeros(n)
+    log1mp[at] = log1mp_n
+    zm[at] = torch.where(in_r, z_n, torch.full_like(z_n, BIG))
+    bb0[at], bb1[at] = b0_n, b1_n
+    log1mp, zm, bb0, bb1 = (v.view(len(pos), kc) for v in (log1mp, zm, bb0, bb1))
+    where = (rows[pos // P], pos % P)
+    S[where] = S[where] + log1mp.sum(-1)
+    j = torch.argmin(zm, dim=-1, keepdim=True)  # first minimal slot
+    z_best = torch.gather(zm, -1, j)[..., 0]
+    z_old = zbuf[where]
+    better = z_best < z_old
+    zbuf[where] = torch.where(better, z_best, z_old)
+    b0[where] = torch.where(better, torch.gather(bb0, -1, j)[..., 0], b0[where])
+    b1[where] = torch.where(better, torch.gather(bb1, -1, j)[..., 0], b1[where])
+    slot[where] = torch.where(better, j[..., 0] + k0, slot[where])
+
+
+def _soft_grad_terms(c, px, py, A, sigma, blur_radius):
+    """The backward kernel's per-(pixel, slot) arithmetic (csrc/raster_bwd.cu):
+    c (N, 9) face rows at pixels px, py with dL/dS A, each (N,) -> the six
+    terms of d(A*S)/d[ax ay bx by cx cy] / 2, each (N,)."""
     ax, ay, bx, by, cx, cy = c[..., :6].unbind(-1)
     b0, b1, b2 = _barycentric(ax, ay, bx, by, cx, cy, px, py)
     inside = (b0 >= 0.0) & (b1 >= 0.0) & (b2 >= 0.0)
@@ -423,7 +498,7 @@ def _soft_grad_rows(c, px, py, A, sigma, blur_radius):
         g2 * (dx2 * (t2 - 1.0)) - g1 * (t1 * dx1),
         g2 * (dy2 * (t2 - 1.0)) - g1 * (t1 * dy1),
     )
-    return torch.stack([2.0 * v.sum(2) for v in terms], dim=-1)
+    return terms
 
 
 @torch.no_grad()
@@ -434,24 +509,31 @@ def backward_plain(table, idx, dS, image_size, tile_h, tile_w, sigma,
     dS (B, H, W) is dL/dS. Returns (B, T, K, 9) rows [gax gay gbx gby gcx gcy
     0 0 0], hand-derived as rasterizer_tpu._soft_logterm_grad does (not by
     autograd), walked over the slots SLOT_CHUNK at a time like
-    forward_plain. The z columns and every slot past the bin's count are
-    exactly 0. Sums run over the pixels in another order than the kernel's.
+    forward_plain, over the pairs inside `cull_windows` (the others are out
+    of radius and add +0). The z columns and every slot past the bin's
+    count are exactly 0. Sums run over the pixels in another order than the
+    kernel's.
     """
     B, T, K, _ = table.shape
-    px, py = _bin_pixels(T, image_size, tile_h, tile_w, table.device)
-    px, py = px[:, :, None], py[:, :, None]  # (T, P, 1)
-    A = _tile(dS.float(), image_size, tile_h, tile_w).reshape(B * T, -1, 1)  # (B*T, P, 1)
+    P = tile_h * tile_w
+    px, py = _bin_pixels(T, image_size, tile_h, tile_w, table.device)  # (T, P)
+    A = _tile(dS.float(), image_size, tile_h, tile_w).reshape(B * T, P)
     valid_all = idx >= 0
     rows_table, rows_valid = table.reshape(B * T, K, 9), valid_all.reshape(B * T, K)
+    windows = cull_windows(table, image_size, tile_h, tile_w, blur_radius,
+                           True).reshape(B * T, K, 4)
     grad = table.new_zeros(B * T, K, 9)
-    n_valid = int(valid_all.sum(-1).max())
-    for k0 in range(0, n_valid, SLOT_CHUNK):
-        rows = _bins_with_faces(valid_all, k0, SLOT_CHUNK)
-        c = rows_table[rows, None, k0:k0 + SLOT_CHUNK][None]  # (1, R, 1, kc, 9)
-        t = rows % T
-        g = _soft_grad_rows(c, px[t][None], py[t][None], A[rows][None], sigma, blur_radius)[0]
-        valid = rows_valid[rows, k0:k0 + SLOT_CHUNK, None]
-        grad[rows, k0:k0 + SLOT_CHUNK, :6] = torch.where(valid, g, torch.zeros_like(g))
+    for group in _chunk_groups(valid_all, windows, rows_valid, SLOT_CHUNK, tile_h, tile_w):
+        rows_of, slots, t, pixels, spans = _group_pairs(group, T)
+        terms = _soft_grad_terms(rows_table[rows_of, slots], px[t, pixels], py[t, pixels],
+                                 A[rows_of, pixels], sigma, blur_radius)
+        for (k0, kc, rows, f, _, _, _), (a, b) in zip(group, spans):
+            sums = []
+            for v in terms:  # each summed over the pixels as a (1, R, P, kc) tensor
+                full = table.new_zeros(len(rows) * P * kc)
+                full[f] = v[a:b]
+                sums.append(2.0 * full.view(1, len(rows), P, kc).sum(2))
+            grad[rows, k0:k0 + kc, :6] = torch.stack(sums, dim=-1)[0]
     return grad.reshape(B, T, K, 9)
 
 

@@ -5,6 +5,12 @@ Counterpart of acfm_video_3d_reconstruction_tpu/train/driver.py
 their BatchNorm statistics, the multiplex tables and the optimizers live in
 torch objects that the steps update in place (train/monocular.py,
 train/multiframe.py), so the loops pass batches, not a state.
+
+Under a process group (parallel/mesh.py) every rank runs the same loader
+with the same seed and keeps its block of each global batch, so the global
+batches are the one-process run's; the steps reduce gradients, statistics,
+write-backs and metrics over the ranks. The logger, the checkpoint saves
+and the panels run on rank 0 only; every rank restores.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from typing import Optional
 import torch
 
 from .. import config as cfg_lib
+from ..parallel import mesh as pmesh
 from . import checkpoints, metrics_logger, prefetch, schedules
 from . import monocular as mono
 from . import multiframe as mf
@@ -59,11 +66,15 @@ def _snapshot_mf(mods: mf.MFModules) -> dict:
 
 
 def _check_finite_or_dump(dump_dir, epoch, step, prev_pair, metrics):
+    """Decides on the step's total_loss, a global mean under a process
+    group, so every rank stops at the same step (each dumping its own
+    state and block, `_rank<r>` in the name)."""
     tl = float(metrics["total_loss"])
     if math.isfinite(tl):
         return
     os.makedirs(dump_dir, exist_ok=True)
-    path = f"{dump_dir}/nan_step_{step}.pt"
+    suffix = f"_rank{pmesh.rank()}" if pmesh.world_size() > 1 else ""
+    path = f"{dump_dir}/nan_step_{step}{suffix}.pt"
     state, batch = prev_pair if prev_pair is not None else (None, None)
     torch.save({"epoch": epoch, "step": step, "state": state, "batch": _to_cpu(batch),
                 "metrics": _to_cpu(metrics)}, path)
@@ -94,8 +105,10 @@ def run_monocular_training(
     modules and the optimizer.
     """
     tr = cfg.train
+    main = pmesh.is_main()
+    vis_fn = vis_fn if main else None
     mods = mono.build(cfg, template, seed=tr.seed, device=device)
-    if vis_fn is None and tr.display_freq > 0:
+    if vis_fn is None and tr.display_freq > 0 and main:
         from . import visualize
 
         vis_fn = visualize.make_monocular_vis_fn(mods)
@@ -106,8 +119,13 @@ def run_monocular_training(
     step = mono.make_train_step(mods)
     opt = step.opt
     save_dir = _save_dir(cfg)
-    logger = metrics_logger.MetricsLogger(save_dir)
-    metrics_logger.dump_config(save_dir, cfg)
+    logger = metrics_logger.MetricsLogger(save_dir) if main else None
+    if main:
+        metrics_logger.dump_config(save_dir, cfg)
+
+    def save(label):
+        if main:
+            checkpoints.save(tr.checkpoint_dir, tr.name, label, mods, opt)
 
     if tr.num_pretrain_epochs > 0 and checkpoints.exists(
         tr.checkpoint_dir, tr.name, tr.num_pretrain_epochs
@@ -115,7 +133,7 @@ def run_monocular_training(
         checkpoints.restore(tr.checkpoint_dir, tr.name, tr.num_pretrain_epochs, mods, opt)
 
     def prep(batch):
-        return prefetch.to_device(batch, mono.BATCH_KEYS, mods.device)
+        return prefetch.to_device(pmesh.shard_batch(batch), mono.BATCH_KEYS, mods.device)
 
     nan_dump = _nan_dump_dir()
     prev_pair = None  # debug mode: the last step's (pre-step state, batch)
@@ -131,17 +149,18 @@ def run_monocular_training(
                 _check_finite_or_dump(nan_dump, epoch, total_steps + 1, prev_pair, metrics)
                 prev_pair = (pre, db)
             total_steps += 1
-            if total_steps % log_every == 0:
+            if main and total_steps % log_every == 0:
                 logger.log(epoch, total_steps, metrics)
             if tr.save_latest_freq > 0 and total_steps % tr.save_latest_freq == 0:
-                checkpoints.save(tr.checkpoint_dir, tr.name, "latest", mods, opt)
+                save("latest")
             if vis_fn is not None and tr.display_freq > 0 and total_steps % tr.display_freq == 0:
                 vis_fn(save_dir, total_steps, db)
         if (epoch + 1) % tr.save_epoch_freq == 0:
-            checkpoints.save(tr.checkpoint_dir, tr.name, "latest", mods, opt)
-            checkpoints.save(tr.checkpoint_dir, tr.name, epoch + 1, mods, opt)
-    checkpoints.save(tr.checkpoint_dir, tr.name, "latest", mods, opt)
-    logger.close()
+            save("latest")
+            save(epoch + 1)
+    save("latest")
+    if main:
+        logger.close()
     return mods, opt
 
 
@@ -187,9 +206,11 @@ def run_multiframe_training(
             "(e.g. flow.infer.make_flow_fn with --flow_checkpoint), or set "
             "of_loss_wt=0"
         )
+    main = pmesh.is_main()
+    vis_fn = vis_fn if main else None
     mods = mf.build(cfg, template, num_frames_total, seed=tr.seed,
                     steps_per_epoch=len(loader), device=device)
-    if vis_fn is None and tr.display_freq > 0:
+    if vis_fn is None and tr.display_freq > 0 and main:
         from . import visualize
 
         vis_fn = visualize.make_multiframe_vis_fn(mods)
@@ -198,19 +219,21 @@ def run_multiframe_training(
     if load_lpips is not None:
         load_lpips(mods.lpips)
     save_dir = _save_dir(cfg)
-    logger = metrics_logger.MetricsLogger(save_dir)
-    metrics_logger.dump_config(save_dir, cfg)
+    logger = metrics_logger.MetricsLogger(save_dir) if main else None
+    if main:
+        metrics_logger.dump_config(save_dir, cfg)
 
     def prep(batch):
-        db = mf.to_device_batch(mods, batch)
+        db = mf.to_device_batch(mods, pmesh.shard_batch(batch))
         return flow_fn(db) if flow_fn is not None else db
 
     if init_camera_emb and loader_noaug is not None:
         for batch in loader_noaug:
-            mf.init_camera_emb(mods, mf.to_device_batch(mods, batch))
+            mf.init_camera_emb(mods, mf.to_device_batch(mods, pmesh.shard_batch(batch)))
 
     def save(label):
-        checkpoints.save_multiframe(tr.checkpoint_dir, tr.name, label, mods)
+        if main:
+            checkpoints.save_multiframe(tr.checkpoint_dir, tr.name, label, mods)
 
     skip_warmups = False
     if load_warmup:
@@ -238,7 +261,7 @@ def run_multiframe_training(
             for db in prefetch.prefetch(loader, prep):
                 wm = warm_step(db)
                 total_steps += 1
-                if total_steps % log_every == 0:
+                if main and total_steps % log_every == 0:
                     logger.log(-1, total_steps, wm)
         save("warmup")
 
@@ -270,7 +293,7 @@ def run_multiframe_training(
                 _check_finite_or_dump(nan_dump, epoch, total_steps + 1, prev_pair, metrics)
                 prev_pair = (pre, db)
             total_steps += 1
-            if total_steps % log_every == 0:
+            if main and total_steps % log_every == 0:
                 logger.log(epoch, total_steps, metrics)
             if tr.save_latest_freq > 0 and total_steps % tr.save_latest_freq == 0:
                 save("latest")
@@ -280,5 +303,6 @@ def run_multiframe_training(
             save("latest")
             save(epoch + 1)
     save("latest")
-    logger.close()
+    if main:
+        logger.close()
     return mods

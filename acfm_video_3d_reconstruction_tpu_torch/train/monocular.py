@@ -30,6 +30,7 @@ from ..models.mesh_net import MeshNet
 from ..models.nn_blocks import init_weights
 from ..models.template import Template
 from ..ops import rasterizer as ras
+from ..parallel import mesh as pmesh
 
 BATCH_KEYS = ("img", "mask", "kp", "sfm_pose", "edt", "boundaries")
 
@@ -226,6 +227,9 @@ def make_train_step(mods: MonoModules, opt: Optional[torch.optim.Optimizer] = No
     optimizer state in place; the optimizer is `train_step.opt`, so that
     train/checkpoints.py can save and restore its moments and step count.
     The metrics are those of the forward before the update, detached.
+    Under a process group (parallel/mesh.py) `batch` is this rank's block of
+    the global batch: the gradients are averaged over the ranks before the
+    update and the metrics are the global means.
     """
     opt = build_optimizer(mods) if opt is None else opt
 
@@ -233,8 +237,10 @@ def make_train_step(mods: MonoModules, opt: Optional[torch.optim.Optimizer] = No
         opt.zero_grad(set_to_none=True)
         loss, aux = forward(mods, to_device_batch(mods, batch), train=True)
         loss.backward()
+        if pmesh.active():
+            pmesh.all_reduce_grads([p for g in opt.param_groups for p in g["params"]])
         opt.step()
-        return {k: v.detach() for k, v in aux["metrics"].items()}
+        return pmesh.reduce_metrics({k: v.detach() for k, v in aux["metrics"].items()})
 
     train_step.opt = opt
     return train_step

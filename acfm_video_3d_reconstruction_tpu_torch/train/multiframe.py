@@ -46,6 +46,7 @@ from ..models.nn_blocks import init_weights
 from ..models.template import Template
 from ..multiplex import state as mpx_lib
 from ..ops import rasterizer as ras
+from ..parallel import mesh as pmesh
 from . import prefetch
 from .monocular import normalize_imagenet
 
@@ -416,6 +417,12 @@ def _dense_grads(opt: torch.optim.Optimizer) -> None:
                 p.grad = torch.zeros_like(p)
 
 
+def _opt_params(opt: torch.optim.Optimizer) -> list:
+    """The optimizer's parameters in its fixed order (the gradient
+    all-reduce's order, the same on every rank)."""
+    return [p for group in opt.param_groups for p in group["params"]]
+
+
 def _set_lr(mods: MFModules) -> None:
     """multistep_lr: each group's rate is base_lr x gamma^(milestones passed),
     a milestone m passed from update m * steps_per_epoch on (0-based), as
@@ -437,7 +444,10 @@ def make_train_step(mods: MFModules, *, k: int, drop_deform: bool = True,
     model and the multiplex tables, the probabilities written back for the
     selected hypotheses; everything updated in place on `mods`. `batch` is
     on the modules' device (to_device_batch), with optical_flows when the
-    flow loss is on."""
+    flow loss is on. Under a process group (parallel/mesh.py) `batch` is
+    this rank's block of the global batch: the gradients are averaged over
+    the ranks after _dense_grads, the write-back takes every rank's rows
+    and the metrics are the global means."""
 
     def train_step(batch: dict) -> dict:
         mods.opt.zero_grad(set_to_none=True)
@@ -445,11 +455,13 @@ def make_train_step(mods: MFModules, *, k: int, drop_deform: bool = True,
                             detach_camera=detach_camera, use_gtpose=use_gtpose)
         loss.backward()
         _dense_grads(mods.opt)
+        if pmesh.active():
+            pmesh.all_reduce_grads(_opt_params(mods.opt))
         _set_lr(mods)
         mods.opt.step()
         mpx_lib.scatter_probs(mods.mpx.state(), batch["frames_idx"], aux["sel"], aux["probs"])
         mods.step += 1
-        return {name: v.detach() for name, v in aux["metrics"].items()}
+        return pmesh.reduce_metrics({name: v.detach() for name, v in aux["metrics"].items()})
 
     return train_step
 
@@ -462,19 +474,23 @@ def make_warmup_step(mods: MFModules):
     def warmup_step(batch: dict) -> dict:
         model = mods.model
         with torch.no_grad():
-            mean_shape = model.get_mean_shape()
+            # get_mean_shape returns the parameter itself: detached, so that
+            # backward reaches the camera table only
+            mean_shape = model.get_mean_shape().detach()
             vert2kp = model.get_vert2kp() if mods.cfg.mf_weights.kp > 0 else None
         mods.warm_opt.zero_grad(set_to_none=True)
         mpx = mods.mpx.state()
         loss, probs, _ = warmup_forward(mods, mpx.cams, mpx, mean_shape, batch, vert2kp)
         loss.backward()
+        if pmesh.active():
+            pmesh.all_reduce_grads(_opt_params(mods.warm_opt))
         mods.warm_opt.step()
         mods.mpx.cams.grad = None
         G, BT = probs.shape
         sel = torch.arange(G, device=probs.device)[:, None].expand(G, BT)
         mpx_lib.scatter_probs(mpx, batch["frames_idx"], sel, probs)
         mods.step += 1
-        return {"warmup_loss": loss.detach()}
+        return pmesh.reduce_metrics({"warmup_loss": loss.detach()})
 
     return warmup_step
 
@@ -483,9 +499,11 @@ def make_warmup_step(mods: MFModules):
 def init_camera_emb(mods: MFModules, batch: dict, scale_lr_decay: float = 0.05) -> None:
     """Write the (rescaled) GT sfm cameras into hypothesis table 0
     (reference multiframe/main.py:419-436 + train_utils init_camera_emb
-    pass); applied per no-augmentation batch."""
+    pass); applied per no-augmentation batch. Under a process group every
+    rank writes every rank's frames (mpx_lib.gather_frame_rows)."""
     cams_gt = cam_utils.transform_camera(batch["sfm_pose"].reshape(-1, 7),
                                          batch["transforms"].reshape(-1, 4))
     rescaled = cams_gt.clone()
     rescaled[:, 0] = (torch.abs(cams_gt[:, 0]) - 1.0) / scale_lr_decay
-    mods.mpx.cams[0, batch["frames_idx"].reshape(-1).long()] = rescaled
+    flat, rescaled = mpx_lib.gather_frame_rows(batch["frames_idx"].reshape(-1).long(), rescaled)
+    mods.mpx.cams[0, flat] = rescaled

@@ -129,6 +129,21 @@ Phases, each of which raises (exit code 1) on failure:
      images; MC_STEPS monocular train steps with exact launches, the loss
      falling, no synchronizing operation in a step; IoU and PCK before and
      after).
+  6e. parallel: data parallelism over torch.distributed (parallel/mesh.py).
+     (a) A world of one over NCCL at full width: the multiframe train step at
+     the CLI defaults (phase 6's options and first train batch, 128 views,
+     the flow call), through the group and with no group from one recorded
+     state under deterministic algorithms: every tensor bit-equal, mean_v
+     within 1e-3, the same launches; PAR_TIMED steps timed each way; one
+     group step profiled (the NCCL kernels' device time, all_reduce_grads'
+     host time). (b) PAR_RANKS spawned ranks over gloo on the one card at
+     64^2 (4 clips of 2 frames, G 4, optimize_deform, every loss weight on,
+     the flow net on each rank's clips): the init, a warm-up step and two
+     train steps, each held from one process's state before it against that
+     process on the whole batch (parallel/checks.py: params, BatchNorm
+     statistics, Adam moments, cams and deform at rtol 1e-4 / atol 1e-5,
+     probs at rtol 1e-3, beside the floor), the ranks identical bit for bit,
+     each rank launching every kernel.
 The launch counters of every kernel are zeroed just before each main path
 and read just after it.
 The second-to-last lines are the card's name and power limit, then one
@@ -1215,25 +1230,29 @@ def _raster_alone(torch, proj, faces, S, tag, modes=("soft", "hard", "soft_bwd")
     return out
 
 
-def _kinds(events) -> dict:
-    """Device ms of a profile's kernels by MF_KINDS, the rest as "other"."""
-    out = {kind: 0.0 for kind, _ in MF_KINDS}
+def _kinds(events, extra_kinds=()) -> dict:
+    """Device ms of a profile's kernels by `extra_kinds` then MF_KINDS, the
+    rest as "other"."""
+    table = tuple(extra_kinds) + MF_KINDS
+    out = {kind: 0.0 for kind, _ in table}
     out["other (elementwise, reductions, indexing; the bin pass)"] = 0.0
     for e in events:
         ms = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
         if ms <= 0:
             continue
         name = e.key.lower()
-        kind = next((k for k, keys in MF_KINDS if any(x in name for x in keys)),
+        kind = next((k for k, keys in table if any(x in name for x in keys)),
                     "other (elementwise, reductions, indexing; the bin pass)")
         out[kind] += ms
     return out
 
 
-def _mf_profile(torch, call, what, path, tag="multiframe", host_top=0, trace=None):
-    """Device ms of one call by kind (torch.profiler), its 12 largest
-    kernels (and its `host_top` largest operators by self host time),
-    appended to `path` when given; the timeline to `trace` when given."""
+def _mf_profile(torch, call, what, path, tag="multiframe", host_top=0, trace=None,
+                extra_kinds=()):
+    """Device ms of one call by kind (torch.profiler; `extra_kinds` before
+    MF_KINDS), its 12 largest kernels (and its `host_top` largest operators
+    by self host time), appended to `path` when given; the timeline to
+    `trace` when given."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
@@ -1248,7 +1267,7 @@ def _mf_profile(torch, call, what, path, tag="multiframe", host_top=0, trace=Non
     events = [e for e in prof.key_averages()
               if "cuda" in str(getattr(e, "device_type", "")).lower() and e.key not in on_host
               and not getattr(e, "is_user_annotation", False)]
-    kinds = _kinds(events)
+    kinds = _kinds(events, extra_kinds)
     total = sum(kinds.values())
     top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total",
                                                 getattr(e, "self_cuda_time_total", 0)))[:12]
@@ -1549,7 +1568,7 @@ def phase_multiframe(torch, device, card, tmp, profile=None, **overrides):
             "time_per_iter_train": [r["time_per_iter"] for r in main_recs],
             "peak_run_gib": peak_run / 2**30, "peak_step_gib": peak_step / 2**30,
             "overflow": overflow, "profile": prof, "kernels": kernels, "opts": o,
-            "sync_ops": sync}
+            "sync_ops": sync, "batch": upload, "num_frames": mods.mpx.probs.shape[0]}
 
 
 def _mf_sync_checks(torch, mods, batch, flow_fn, upload, k):
@@ -2610,6 +2629,322 @@ def phase_flow(torch, device, profile):
     return rate, spread, launches
 
 
+# the parallel phase's two-rank run: 64^2, 4 clips of 2 frames, G 4, the
+# deform tables trained, every loss weight on, the flow net at 64x128
+PAR_IMG, PAR_CLIPS, PAR_T, PAR_G, PAR_KPS = 64, 4, 2, 4, 5
+PAR_NET_HW = (64, 128)
+PAR_RANKS = 2
+PAR_TIMED = 5  # train steps timed each way at full width
+
+
+def _par_modules(device):
+    """The two-rank run's modules: the CLI's model widths (subdivide 3, 15
+    handles, nz_feat 200, tex 6, texture on) at PAR_IMG^2 with PAR_KPS
+    keypoints, G = PAR_G, optimize_deform, every loss weight on."""
+    from acfm_video_3d_reconstruction_tpu_torch import config as cfg_lib
+    from acfm_video_3d_reconstruction_tpu_torch.models.template import build_template
+    from acfm_video_3d_reconstruction_tpu_torch.train import multiframe as mf
+
+    template = build_template(subdivide=3, num_lbs=15, tex_size=6, num_kps=PAR_KPS)
+    cfg = cfg_lib.Config(
+        model=dataclasses.replace(cfg_lib.ModelConfig(), img_size=PAR_IMG, nz_feat=200,
+                                  num_lbs=15, num_kps=PAR_KPS, tex_size=6, texture=True,
+                                  symmetric=False, symmetric_texture=False),
+        multiplex=dataclasses.replace(cfg_lib.MultiplexConfig(), num_guesses=PAR_G,
+                                      optimize_deform=True),
+        train=dataclasses.replace(cfg_lib.TrainConfig(), batch_size=PAR_CLIPS,
+                                  num_frames=PAR_T, offset_z=0.0),
+        mf_weights=dataclasses.replace(cfg_lib.MultiframeLossWeights(), kp=1.0,
+                                       handle_deform_reg=0.1),
+    )
+    return mf.build(cfg, template, PAR_CLIPS * PAR_T * 2, seed=0, device=device)
+
+
+def _par_batch(seed, frames_idx=None) -> dict:
+    """A global batch of PAR_CLIPS clips (numpy)."""
+    rng = np.random.default_rng(seed)
+    B, T, H = PAR_CLIPS, PAR_T, PAR_IMG
+    kp = rng.uniform(-1, 1, (B, T, PAR_KPS, 3)).astype(np.float32)
+    kp[..., 2] = rng.random((B, T, PAR_KPS)) > 0.3
+    return {
+        "img": rng.random((B, T, H, H, 3), np.float32),
+        "mask": (rng.random((B, T, H, H)) > 0.5).astype(np.float32),
+        "kp": kp,
+        "sfm_pose": np.tile(np.asarray([0.8, 0, 0, 1, 0, 0, 0], np.float32), (B, T, 1)),
+        "frames_idx": (np.arange(B * T, dtype=np.int32).reshape(B, T)
+                       if frames_idx is None else frames_idx),
+        "mirror_flag": rng.integers(0, 2, (B, T)).astype(np.int32),
+        "transforms": np.tile(np.asarray([1.0, 0, 0, 0], np.float32), (B, T, 1)),
+        "edt": rng.random((B * T, H, H)).astype(np.float32),
+        "bdt": rng.random((B * T, H, H)).astype(np.float32),
+        "boundaries": rng.random((B * T, 32, 3)).astype(np.float32),
+    }
+
+
+def _par_program(device):
+    """The two-rank run's Program (parallel/checks.py): the camera-embedding
+    init, a warm-up step, a train step at k = G and one at k = 2 on frames
+    shared by clips of both ranks (frame 1 in clips 0 and 3, frame 5 in
+    clips 1 and 2), each on this process's block, the flows from the
+    frozen flow net on the block (15 cost volumes a call)."""
+    import torch
+
+    from acfm_video_3d_reconstruction_tpu_torch.flow import infer
+    from acfm_video_3d_reconstruction_tpu_torch.flow import maskflownet as mfn
+    from acfm_video_3d_reconstruction_tpu_torch.parallel import checks
+    from acfm_video_3d_reconstruction_tpu_torch.parallel import mesh as pmesh
+    from acfm_video_3d_reconstruction_tpu_torch.train import multiframe as mf
+
+    mods = _par_modules(device)
+    net = mfn.build(mfn.init_params(torch.Generator().manual_seed(0)), device)
+    flow_fn = infer.make_flow_fn(net, PAR_IMG, PAR_NET_HW)
+    shared = np.arange(PAR_CLIPS * PAR_T, dtype=np.int32).reshape(PAR_CLIPS, PAR_T) + 2
+    shared[0, 1] = shared[3, 0] = 1
+    shared[1, 0] = shared[2, 1] = 5
+    batches = [_par_batch(1), _par_batch(2), _par_batch(3, shared)]
+
+    def put(b, flows=True):
+        db = mf.to_device_batch(mods, pmesh.shard_batch(b))
+        return flow_fn(db) if flows else db
+
+    steps = [("init_camera_emb", lambda: mf.init_camera_emb(mods, put(batches[0], False))
+              or {}),
+             ("warm-up", lambda: mf.make_warmup_step(mods)(put(batches[0]))),
+             ("train k=G", lambda: mf.make_train_step(mods, k=PAR_G, drop_deform=False)(
+                 put(batches[1]))),
+             ("train k=2", lambda: mf.make_train_step(mods, k=2, drop_deform=False)(
+                 put(batches[2])))]
+    return checks.Program(mods.model, {"opt": mods.opt, "warm_opt": mods.warm_opt}, steps,
+                          mpx=mods.mpx, mods=mods)
+
+
+def _par_rank(device, work):
+    """One rank of the two-rank run (spawned; parallel/ranks.py): the
+    Program step by step from the reference's states under deterministic
+    algorithms (parallel/checks.py::run_rank); its launches."""
+    import torch
+
+    from acfm_video_3d_reconstruction_tpu_torch.parallel import checks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    prog = _par_program(device)
+    with deterministic_algorithms(torch):
+        zero_launches()
+        steps = checks.run_rank(prog, work, "par")
+        launches = read_launches()
+    return {"steps": steps, "launches": launches}
+
+
+@contextlib.contextmanager
+def _cudnn_off(torch):
+    with torch.backends.cudnn.flags(enabled=False):
+        yield
+
+
+def _step_ms(torch, step, db, n):
+    """Host-clock ms of each of n steps, each ending in a synchronize."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step(db)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _spread(xs):
+    return (max(xs) - min(xs)) / float(np.median(xs))
+
+
+def phase_parallel(torch, device, card, mf_run, tmp, profile=None):
+    """Data parallelism (parallel/mesh.py), in two parts.
+
+    (a) A world of one over NCCL (gloo on the CPU) at full width: the
+    multiframe train step at the CLI defaults (the multiframe phase's
+    options, 128 views, the flow call of prep on its first train batch),
+    through the group and with no group, from one recorded state, under
+    deterministic algorithms: every tensor after the step equal bit for bit
+    (parameters, BatchNorm statistics, multiplex tables, Adam moments,
+    metrics), mean_v and its moments within vector relative error 1e-3 (the
+    watch list's floors); the same launches both ways. Each way PAR_TIMED
+    steps timed (host clock, PyTorch's default algorithms) with their
+    spread, in turn (no group, the group, no group again, each after one
+    untimed step); one group step profiled: the NCCL kernels' share of its
+    device time, all_reduce_grads' host time and its time between CUDA
+    events.
+
+    (b) PAR_RANKS ranks over gloo on the one card (NCCL puts one rank on a
+    card), spawned: _par_program at 64^2 (the init, a warm-up step, two
+    train steps), each step held from the reference's state before it
+    against one process on the whole batch on the card
+    (parallel/checks.py's rules: params, BatchNorm statistics, Adam moments,
+    cams and deform at rtol 1e-4 / atol 1e-5, probs at rtol 1e-3; the floor
+    is the reference step under PyTorch's default algorithms and with cuDNN
+    off), the ranks identical bit for bit, each rank launching every kernel:
+    3 soft, 2 hard, 3 soft_bwd, 15 md=4 and 30 md=2 cost volumes.
+    Returns the group step's launches plus the ranks'."""
+    import os
+
+    from acfm_video_3d_reconstruction_tpu_torch.cli import multiframe_main
+    from acfm_video_3d_reconstruction_tpu_torch.parallel import checks
+    from acfm_video_3d_reconstruction_tpu_torch.parallel import mesh as pmesh
+    from acfm_video_3d_reconstruction_tpu_torch.parallel.ranks import Ranks
+    from acfm_video_3d_reconstruction_tpu_torch.train import multiframe as mf
+
+    t_phase = time.perf_counter()
+    o, upload = mf_run["opts"], mf_run["batch"]
+    cfg = multiframe_main.build_cfg(o)
+    mods = mf.build(cfg, multiframe_main.build_mf_template(cfg), mf_run["num_frames"], seed=0,
+                    device=device)
+    flow_fn = multiframe_main.make_flow_fn_from_opts(o, o["img_size"], device)
+    G, B, T = o["num_guesses"], o["batch_size"], o["num_frames"]
+    step = mf.make_train_step(mods, k=G, drop_deform=True)
+    prog = checks.Program(mods.model, {"opt": mods.opt, "warm_opt": mods.warm_opt}, [],
+                          mpx=mods.mpx, mods=mods)
+    state0 = prog.state()
+    # mean_v's Adam moments are named by the parameter's index in the optimizer
+    opt_params = [p for g in mods.opt.param_groups for p in g["params"]]
+    i_mean_v = next(i for i, p in enumerate(opt_params) if p is mods.model.mean_v)
+    mean_v_keys = ("model.mean_v", f"opt[{i_mean_v}].")
+
+    def one_step():
+        prog.load(state0, keep_probs=False)
+        with deterministic_algorithms(torch):
+            zero_launches()
+            metrics = step(flow_fn(dict(pmesh.shard_batch(upload))))
+            torch.cuda.synchronize()
+            launches = read_launches()
+        return {k: float(v) for k, v in metrics.items()}, checks.flat(prog.state()), launches
+
+    db = flow_fn(dict(upload))
+    alone = one_step()
+    prog.load(state0, keep_probs=False)
+    ms_alone = _step_ms(torch, step, db, PAR_TIMED + 1)[1:]  # the first warms up
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    pmesh.init(backend, "file://" + os.path.join(tmp, "world_of_one"), 1, 0, device, 300.0)
+    try:
+        grouped = one_step()
+        prog.load(state0, keep_probs=False)
+        ms_group = _step_ms(torch, step, db, PAR_TIMED + 1)[1:]
+        reduce_ms, reduce_dev_ms, nccl = [], [], {}
+        real_reduce = pmesh.all_reduce_grads
+
+        def timed_reduce(params):
+            params = list(params)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            real_reduce(params)
+            end.record()
+            torch.cuda.synchronize()
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+            reduce_dev_ms.append(start.elapsed_time(end))
+
+        pmesh.all_reduce_grads = timed_reduce
+        try:
+            total, kinds = _mf_profile(torch, lambda: step(db), f"one train step through a "
+                                       f"world of one ({backend}, k={G}, {G * B * T} views)",
+                                       profile, tag="parallel", extra_kinds=(("NCCL", ("nccl",)),))
+        finally:
+            pmesh.all_reduce_grads = real_reduce
+        nccl = {"step_device_ms": total, "nccl_device_ms": kinds.get("NCCL", 0.0),
+                "all_reduce_grads_host_ms": reduce_ms, "all_reduce_grads_event_ms": reduce_dev_ms}
+    finally:
+        pmesh.shutdown()
+    prog.load(state0, keep_probs=False)
+    ms_after = _step_ms(torch, step, db, PAR_TIMED + 1)[1:]  # no group again
+    (m_a, s_a, l_a), (m_g, s_g, l_g) = alone, grouped
+    require(l_a == l_g and l_a["soft"] == 1 and l_a["hard"] == 1 and l_a["soft_bwd"] == 1,
+            f"parallel world of one: launches {l_g} through the group, {l_a} without")
+    require(m_a.keys() == m_g.keys() and s_a.keys() == s_g.keys(), "parallel: keys differ")
+    unequal, mean_v = [], 0.0
+    for k, v in s_a.items():
+        if (torch.equal(v, s_g[k]) if torch.is_tensor(v) else v == s_g[k]):
+            continue
+        if k.startswith(mean_v_keys):
+            mean_v = max(mean_v, _rel_vec(torch, s_g[k], v))
+        else:
+            unequal.append(k)
+    unequal += [f"metric {k}" for k in m_a if m_a[k] != m_g[k]]
+    log(f"[parallel] world of one ({backend}) vs no group, one train step from one state "
+        f"(k={G}, {G * B * T} views, deterministic algorithms): {len(s_a)} tensors, "
+        f"{len(unequal)} not bit-equal {unequal[:6]}, mean_v rel {mean_v:.3g}; launches "
+        f"{l_g}")
+    require(not unequal and mean_v <= 1e-3,
+            f"parallel world of one: {unequal} differ, mean_v rel {mean_v}")
+    log(f"[parallel] train step ms (host clock, {PAR_TIMED} steps each after one untimed, "
+        f"default algorithms), in turn: no group median {np.median(ms_alone):.3f} spread "
+        f"{_spread(ms_alone):.3f} {[round(x, 3) for x in ms_alone]}; world of one median "
+        f"{np.median(ms_group):.3f} spread {_spread(ms_group):.3f} "
+        f"{[round(x, 3) for x in ms_group]}; no group again median {np.median(ms_after):.3f} "
+        f"spread {_spread(ms_after):.3f} {[round(x, 3) for x in ms_after]}; profiled group "
+        f"step {nccl['step_device_ms']:.3f} ms of device time, NCCL kernels "
+        f"{nccl['nccl_device_ms']:.4f} ms, all_reduce_grads {reduce_ms} ms by host clock, "
+        f"{reduce_dev_ms} ms between CUDA events; card {card}")
+    del mods, db, state0, step, prog
+
+    # (b) two ranks over gloo on the one card against one process
+    work = os.path.join(tmp, "parallel")
+    os.makedirs(work, exist_ok=True)
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 0
+    ranks = Ranks(_par_rank, [str(device)] * PAR_RANKS, "gloo", args=(work,),
+                  workdir=os.path.join(work, "ranks"), timeout_s=600.0, threads=2).start()
+    t0 = time.perf_counter()
+    try:
+        prog = _par_program(device)
+        if device.type == "cuda":
+            floors = (lambda: _default_algorithms(torch), lambda: _cudnn_off(torch))
+        else:  # the CPU rehearsal: other thread counts
+            floors = tuple(functools.partial(checks.cpu_threads, n) for n in (1, 2))
+        with deterministic_algorithms(torch):
+            zero_launches()
+            checks.record_reference(prog, work, "par", floors=floors)
+            ref_launches = read_launches()
+    finally:
+        ranks_out = ranks.join()
+    t_ranks = time.perf_counter() - t0
+    n_steps = len(prog.steps)
+    del prog
+    for r, out in enumerate(ranks_out):
+        want = only(soft=3, hard=2, soft_bwd=3, corr_md4=15, corr_md2=30)
+        require(out["launches"] == want,
+                f"parallel rank {r}: launches {out['launches']} != {want}")
+    reports = []
+    for i in range(n_steps):
+        digests = {out["steps"][i]["digest"] for out in ranks_out}
+        rep = checks.merge([out["steps"][i]["report"] for out in ranks_out])
+        reports.append(rep)
+        worst = max(rep["floor_held"], key=lambda x: x[1] / x[2], default=None)
+        log(f"[parallel] {PAR_RANKS} gloo ranks vs one process, step "
+            f"{ranks_out[0]['steps'][i]['step']}: fails {rep['fails'][:4]}, held to the floor "
+            f"{len(rep['floor_held'])} (worst {worst}), undecided {rep['undecided']} of "
+            f"{rep['decided']} (floor {rep['floor_undecided']}), ranks identical "
+            f"{len(digests) == 1}")
+        require(not rep["fails"] and rep["undecided_ok"] and len(digests) == 1,
+                f"parallel step {i + 1}: {rep['fails'][:6]}, undecided {rep['undecided']} of "
+                f"{rep['decided']}, digests {digests}")
+    log(f"[parallel] {PAR_RANKS} ranks on {n_dev} card(s) over gloo, {n_steps} steps at "
+        f"{PAR_IMG}^2 ({PAR_CLIPS} clips of {PAR_T}, G={PAR_G}): {t_ranks:.2f} s with the "
+        f"reference and its floors ({ref_launches} launches in this process); phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    launches = {k: l_g[k] + sum(out["launches"][k] for out in ranks_out) for k in l_g}
+    return {"launches": launches, "ms_alone": ms_alone, "ms_group": ms_group,
+            "ms_alone_after": ms_after, "nccl": nccl,
+            "mean_v_rel": mean_v, "reports": reports}
+
+
+@contextlib.contextmanager
+def _default_algorithms(torch):
+    """Within deterministic_algorithms: PyTorch's default algorithms."""
+    torch.use_deterministic_algorithms(False)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -2662,6 +2997,7 @@ def main(argv=None) -> int:
         evaluate = phase_evaluate(torch, device, card, multiframe["opts"], tmp, args.profile)
         mini_tigdog = phase_mini_tigdog(torch, device, card, tmp)
         mini_cub = phase_mini_cub(torch, device, card, tmp)
+        parallel = phase_parallel(torch, device, card, multiframe, tmp, args.profile)
 
     counter = {"raster_fwd_soft": "soft", "raster_fwd_hard": "hard",
                "raster_bwd_soft": "soft_bwd", "correlation_md4": "corr_md4",
@@ -2672,7 +3008,7 @@ def main(argv=None) -> int:
                                              driver["train_launches"], driver["eval_launches"],
                                              synthetic["launches"], multiframe["launches"],
                                              evaluate["launches"], mini_tigdog["launches"],
-                                             mini_cub["launches"]))
+                                             mini_cub["launches"], parallel["launches"]))
     n_eval, n_train = EVAL_WINDOWS * EVAL_STEPS, TRAIN_WINDOWS * TRAIN_STEPS
     n_flow = FLOW_WINDOWS * FLOW_CALLS
     log("[result] " + json.dumps({
@@ -2710,7 +3046,15 @@ def main(argv=None) -> int:
         "mini_cub_before": mini_cub["before"], "mini_cub_after": mini_cub["after"],
         "mini_cub_after_train": mini_cub["after_train"],
         "mini_cub_loss_first_last_tenth": mini_cub["loss_first_last_tenth"],
-        "mini_cub_seconds": mini_cub["seconds"]}))
+        "mini_cub_seconds": mini_cub["seconds"],
+        "parallel_step_ms_no_group": parallel["ms_alone"],
+        "parallel_step_ms_world_of_one": parallel["ms_group"],
+        "parallel_step_ms_no_group_after": parallel["ms_alone_after"],
+        "parallel_world_of_one_profile": parallel["nccl"],
+        "parallel_world_of_one_mean_v_rel": parallel["mean_v_rel"],
+        "parallel_ranks_floor_held": [len(r["floor_held"]) for r in parallel["reports"]],
+        "parallel_ranks_undecided": [[r["undecided"], r["decided"]]
+                                     for r in parallel["reports"]]}))
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -409,7 +409,9 @@ def test_port_sources_import_no_jax():
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     port = os.path.join(ROOT, "acfm_video_3d_reconstruction_tpu_torch")
     for new in ("data/synthetic.py", "data/pascal.py", "data/objects.py", "data/kp_splits.py",
-                "tools/sfm_init.py", "tools/__init__.py"):
+                "tools/sfm_init.py", "tools/__init__.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/ranks.py", "parallel/checks.py",
+                "graft_entry.py"):
         assert os.path.join(port, new) in paths, new
     bad = [(p, m) for p in paths for m in _imports(p) if m.split(".")[0] in _JAX_ROOTS]
     assert not bad, bad

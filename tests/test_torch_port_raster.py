@@ -405,8 +405,53 @@ class TestCullWindows:
             np.testing.assert_array_equal(p2f_t[b, :, col], p2f_j[b, :, col])
 
 
+
+def _whole_bins(table, image_size, tile_h, tile_w, blur_radius, soft):
+    """cull_windows' stand-in that keeps every pair of a bin: the plain
+    versions then walk every (pixel, slot) pair, as they did before they
+    culled."""
+    B, T, K, _ = table.shape
+    w = torch.tensor([0, tile_w - 1, 0, tile_h - 1], dtype=torch.int32)
+    return w.expand(B, T, K, 4).clone()
+
+
+def _bit_equal(a, b):
+    return torch.equal(a, b) and (not a.is_floating_point()
+                                  or torch.equal(torch.signbit(a), torch.signbit(b)))
+
+
+@pytest.mark.parametrize("which", ["icosphere_64", "adversarial_32", "adversarial_64"])
+def test_culled_walk_equals_walk_of_every_pair(which, monkeypatch):
+    """forward_plain (soft and hard) and backward_plain evaluate only the
+    pairs inside cull_windows; their outputs equal, bit for bit (signs of
+    zeros included), a walk of every pair of every bin: the mini-TigDog
+    step's 1280-face mesh at 64^2 (K = 1280) and the adversarial scenes."""
+    if which == "icosphere_64":
+        verts, faces = chk.icosphere_scene(3, subdivide=3)
+        size = 64
+    else:
+        size = int(which.split("_")[1])
+        v, f, _ = chk.adversarial_scene(size)
+        verts, faces = torch.from_numpy(v), torch.from_numpy(f)
+    dS = torch.randn(verts.shape[0], size, size, generator=torch.Generator().manual_seed(0))
+    for soft, blur in ((True, rc.BLUR_RADIUS), (False, 0.0)):
+        table, idx, th, tw = rc.bin_faces(verts, faces, size, 1280, blur)
+        culled = rc.forward_plain(table, idx, size, th, tw, rc.SIGMA, blur, soft)
+        g_culled = rc.backward_plain(table, idx, dS, size, th, tw, rc.SIGMA, blur) if soft \
+            else None
+        with monkeypatch.context() as m:
+            m.setattr(rc, "cull_windows", _whole_bins)
+            every = rc.forward_plain(table, idx, size, th, tw, rc.SIGMA, blur, soft)
+            g_every = rc.backward_plain(table, idx, dS, size, th, tw, rc.SIGMA, blur) if soft \
+                else None
+        for name, a, b in zip(culled._fields, culled, every):
+            assert _bit_equal(a, b), (which, soft, name)
+        if soft:
+            assert _bit_equal(g_culled, g_every), (which, "backward")
+
 def test_port_imports_no_jax():
-    """Every module of the port, chip_smoke.py, the port's synthetic demo
+    """Every module of the port (the data-parallel modules and the entry
+    points among them), chip_smoke.py, the port's synthetic demo
     and parity tools and the fixture writers of tools/ import without JAX, flax, orbax, absl or the JAX package;
     importing chip_smoke loads neither PIL nor cv2 (the data path imports
     them where it reads or resizes)."""
@@ -421,6 +466,8 @@ def test_port_imports_no_jax():
         "import acfm_video_3d_reconstruction_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for m in ('parallel.mesh', 'parallel.ranks', 'parallel.checks', 'graft_entry'):\n"
+        "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in\n"
         "       ('jax', 'flax', 'orbax', 'absl', 'acfm_video_3d_reconstruction_tpu')]\n"
         "assert not bad, bad\n"
