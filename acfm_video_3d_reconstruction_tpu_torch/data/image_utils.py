@@ -25,6 +25,43 @@ def resize_img(img: np.ndarray, scale_factor: float):
     return new_img, actual_factor
 
 
+AB_BITS = 10  # OpenCV's fixed-point fraction bits for warpAffine's source coordinates
+
+
+def warp_affine_nearest(src: np.ndarray, M, dsize) -> np.ndarray:
+    """cv2.warpAffine(src, M, dsize, flags=cv2.INTER_NEAREST) of a 2-D array,
+    border constant 0, in numpy with OpenCV's arithmetic: M inverted in
+    double, the source coordinates of pixel (x, y) in fixed point with
+    AB_BITS fraction bits (each term rounded half to even, as cvRound
+    does), plus half, shifted down. Bit-equal to OpenCV 5.0's warp of a
+    float64 array (tests/test_torch_port_mini_tigdog_lockstep.py; it warps
+    float32 and uint8 by other arithmetic). The TigDog augmentation warps
+    its float64 masks here, not through cv2: OpenCV 4.13's nearest warp of
+    a float64 mask returns one that does not lie on the image warped by the
+    same matrix, and the trainer would fit silhouettes to it. dsize is
+    (width, height), as cv2 takes it."""
+    W, H = dsize
+    m = np.asarray(M, np.float64).ravel().copy()
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[4] = a11, a22
+    m[1] *= -d
+    m[3] *= -d
+    m[2], m[5] = -m[0] * m[2] - m[1] * m[5], -m[3] * m[2] - m[4] * m[5]
+    scale = float(1 << AB_BITS)
+    x, y = np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64)
+    half = 1 << (AB_BITS - 1)
+    x0 = np.rint((m[1] * y + m[2]) * scale).astype(np.int64) + half
+    y0 = np.rint((m[4] * y + m[5]) * scale).astype(np.int64) + half
+    sx = (x0[:, None] + np.rint(m[0] * x * scale).astype(np.int64)[None]) >> AB_BITS
+    sy = (y0[:, None] + np.rint(m[3] * x * scale).astype(np.int64)[None]) >> AB_BITS
+    inside = (sx >= 0) & (sx < src.shape[1]) & (sy >= 0) & (sy < src.shape[0])
+    out = np.zeros((H, W), src.dtype)
+    out[inside] = src[sy[inside], sx[inside]]
+    return out
+
+
 def peturb_bbox(bbox, pf=0.0, jf=0.0, rng: np.random.Generator | None = None):
     """Pad by pf and jitter by jf fractions of the bbox size."""
     rng = rng or np.random.default_rng()

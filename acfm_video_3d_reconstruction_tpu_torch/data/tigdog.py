@@ -371,9 +371,8 @@ class MultiFrameDataset:
             [cv2.warpAffine(im, M, (W, H), flags=cv2.INTER_LINEAR, borderValue=(1, 1, 1))
              for im in imgs]
         )
-        out_m = np.stack(
-            [cv2.warpAffine(m, M, (W, H), flags=cv2.INTER_NEAREST) for m in masks]
-        )
+        # cv2's nearest warp, in numpy (image_utils.warp_affine_nearest)
+        out_m = np.stack([image_utils.warp_affine_nearest(m, M, (W, H)) for m in masks])
         kp_new = kps.copy()
         vis = kps[:, :, 2] > 0
         xy = kps[:, :, :2] * zoom + np.asarray([(1 - zoom) * W / 2.0 + tx,

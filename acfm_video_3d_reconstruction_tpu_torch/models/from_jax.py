@@ -16,9 +16,10 @@ Conventions:
 `convert` also holds a training step of the two against each other: the
 JAX step's updated `params` / `batch_stats` pair, converted, is compared
 with the port's `state_dict` after its own step from the same weights.
-Adam's moments start at zero on both sides, so no optimizer state needs
-carrying across. `load_jax_multiframe` carries a JAX MFTrainState's model,
-LPIPS and multiplex tables into the multiframe trainer's modules.
+`load_jax_multiframe` carries a JAX MFTrainState's model, LPIPS and
+multiplex tables into the multiframe trainer's modules, and
+`load_jax_optimizers` its two Adam states (moments and step count), so that
+a state taken in the middle of a JAX run continues in the port.
 """
 from __future__ import annotations
 
@@ -131,6 +132,75 @@ def load_jax_multiframe(mods, params: Mapping, batch_stats: Mapping, lpips_param
         if tuple(np.shape(arr)) != tuple(target[k].shape):
             raise ValueError(f"multiplex {k}: shape {np.shape(arr)} vs {tuple(target[k].shape)}")
     mods.mpx.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in given.items()})
+
+
+def convert_params(module: nn.Module, tree: Mapping) -> dict:
+    """A flax params tree, or a tree of its layout such as Adam's moments
+    of it, -> {parameter name: tensor} covering every parameter of
+    `module`, shape for shape."""
+    params = dict(module.named_parameters())
+    out = {}
+    for path, arr in _flatten(tree):
+        key = _torch_key(path)
+        if key not in params:
+            raise KeyError(f"{'/'.join(path)} -> {key}: not a parameter of "
+                           f"{type(module).__name__}")
+        val = torch.tensor(_leaf_value(path, arr))
+        if tuple(val.shape) != tuple(params[key].shape):
+            raise ValueError(f"{key}: shape {tuple(val.shape)} vs {tuple(params[key].shape)}")
+        out[key] = val
+    missing = sorted(set(params) - set(out))
+    if missing:
+        raise KeyError(f"parameters not covered by the flax tree: {missing}")
+    return out
+
+
+def _load_adam(opt: torch.optim.Optimizer, moments: list, count: int) -> None:
+    """Adam's state of each parameter of `opt`, in its order: `moments` a
+    list of (mu, nu) numpy pairs and `count` optax's step count. torch
+    counts the step before it corrects the bias, as optax counts count_inc,
+    so step = count; count 0 leaves the optimizer without state, as torch
+    builds it (its first step then makes the zero moments optax starts
+    from), and needs no moments."""
+    params = [p for group in opt.param_groups for p in group["params"]]
+    opt.state.clear()
+    if count == 0:
+        return
+    if len(moments) != len(params):
+        raise ValueError(f"{len(moments)} moment pairs for {len(params)} parameters")
+    for p, (mu, nu) in zip(params, moments):
+        for what, arr in (("mu", mu), ("nu", nu)):
+            if tuple(np.shape(arr)) != tuple(p.shape):
+                raise ValueError(f"Adam {what}: shape {np.shape(arr)} vs {tuple(p.shape)}")
+        opt.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": torch.tensor(np.asarray(mu), dtype=p.dtype, device=p.device),
+            "exp_avg_sq": torch.tensor(np.asarray(nu), dtype=p.dtype, device=p.device),
+        }
+
+
+def load_jax_optimizers(mods, full: Mapping, warm: Mapping) -> None:
+    """Load a JAX MFTrainState's two Adam states into a built
+    train/multiframe.py MFModules' optimizers, so that the port's next step
+    is the JAX step's. `full` = {"count", "mu", "nu"}, numpy, from optax's
+    ScaleByAdamState of tx_full: mu and nu are trees {"params": the flax
+    params layout, "mpx": {"cams"[, "deform", "deform_mirror"]}}. `warm` is
+    the same for tx_warm, whose mu and nu are the camera table's arrays.
+    At count 0 the moments (zeros) may be left out. Only the plain Adam
+    (one parameter group) is carried."""
+    if len(mods.opt.param_groups) != 1:
+        raise ValueError("only a single-group optimizer_full is carried across")
+    moments = []
+    if int(full["count"]):
+        conv = {what: convert_params(mods.model, full[what]["params"]) for what in ("mu", "nu")}
+        for name, p in mods.model.named_parameters():
+            if p.requires_grad:
+                moments.append((conv["mu"][name].numpy(), conv["nu"][name].numpy()))
+        for name, _ in mods.mpx.named_parameters():
+            moments.append((full["mu"]["mpx"][name], full["nu"]["mpx"][name]))
+    _load_adam(mods.opt, moments, int(full["count"]))
+    _load_adam(mods.warm_opt, [(warm["mu"], warm["nu"])] if int(warm["count"]) else [],
+               int(warm["count"]))
 
 
 def maskflownet_from_jax(params: Mapping) -> dict:

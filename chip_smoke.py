@@ -2087,11 +2087,38 @@ def _tto_recorder(real_make, calls):
     return make
 
 
+def _masks_on_images(n=20):
+    """The TigDog augmentation's mask warp held to its image warp on this
+    host's cv2: n random ellipses (image = 1 - mask, so the image's border
+    fill of 1 reads as background) through MultiFrameDataset._affine at
+    the augmentation's zooms and shifts; returns the least share of pixels
+    where the warped image thresholded at 0.5 and the warped mask agree
+    (only the ellipse's boundary pixels may differ)."""
+    from acfm_video_3d_reconstruction_tpu_torch.data import tigdog as tig
+
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[:64, :64]
+    least = 1.0
+    for _ in range(n):
+        cy, cx, ry, rx = rng.uniform(20, 44), rng.uniform(20, 44), *rng.uniform(6, 18, 2)
+        mask = ((((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2) <= 1).astype(np.float64)
+        imgs = np.repeat((1.0 - mask)[None, ..., None], 3, -1)
+        zoom, shift = rng.uniform(0.8, 1.05), rng.uniform(-0.05, 0.05, 2)
+        wi, wm, _ = tig.MultiFrameDataset._affine(None, imgs, mask[None], np.zeros((1, 1, 3)),
+                                                  zoom, shift)
+        least = min(least, float(((wi[0, ..., 0] < 0.5) == (wm[0] > 0.5)).mean()))
+    return least
+
+
 def phase_mini_tigdog(torch, device, card, tmp):
     """The mini-TigDog parity run (tools/torch_mini_tigdog_parity.py) cut in
     epochs only: the multiframe CLI pair trained and evaluated to
     convergence on synthetic clips with known GT cameras.
 
+    0. The augmentation's mask warp against its image warp (_masks_on_images):
+       at least 99% of the pixels agree on every one of 20 warps. The mask
+       warp is numpy (data/image_utils.py::warp_affine_nearest); through
+       OpenCV 4.13's nearest warp of a float64 mask it would not be.
     a. generate() at the tool's widths (60 videos of 6 frames at 144^2):
        exactly 1 soft + 1 hard launch per video, no bin overflow (K = F =
        1280). The first MT_CPU_VIDEOS videos again on the CPU (the plain
@@ -2110,7 +2137,11 @@ def phase_mini_tigdog(torch, device, card, tmp):
        off: no cost volume); the init_camera_emb pass none; with S the
        steps of an epoch, num_reps * S warm-up and MT_EPOCHS * S train steps.
        Every metrics.jsonl record finite; the main loop's total_loss falling
-       (the last tenth of its logged steps below the first tenth).
+       (the last tenth of its logged steps below the first tenth). Logs the
+       multiplex report (the tool's multiplex_report from the state after
+       the init_camera_emb pass): each hypothesis's distance from its row,
+       the argmax histogram over the training frames and its share at
+       hypothesis 0, the mean shape's and the BatchNorm statistics' change.
     c. One train step (k = 4, 32 views at K = 1280) from the trained state on
        the first train batch through the kernels and through the plain
        rasterizer, under deterministic algorithms: loss matrix and probs
@@ -2137,6 +2168,13 @@ def phase_mini_tigdog(torch, device, card, tmp):
 
     tool = _tool("torch_mini_tigdog_parity")
     t_phase = time.perf_counter()
+    import cv2
+
+    on_image = _masks_on_images()
+    log(f"[mini_tigdog] the augmentation's masks on its images (cv2 {cv2.__version__}): "
+        f"least agreement {on_image:.4f} over 20 warps")
+    require(on_image >= 0.99, f"mini_tigdog: the augmented masks leave their images "
+            f"(agreement {on_image}; the nearest warp of cv2 {cv2.__version__})")
     template = tool.build_template()
     root = os.path.join(tmp, "mini_tigdog")
     n_v, RAW = tool.N_VIDEOS, tool.RAW
@@ -2213,13 +2251,20 @@ def phase_mini_tigdog(torch, device, card, tmp):
     try:
         zero_launches()
         t0 = time.perf_counter()
-        mods = multiframe_main.train(o)
+        with tool.recording_start({}) as start:
+            mods = multiframe_main.train(o)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         train_launches = read_launches()
     finally:
         mf.make_warmup_step, mf.make_train_step = real_warm, real_train
         ras.soft_silhouette_vis = real_vis
+    mpx_report = tool.multiplex_report(start["start"], tool.snapshot(mods))
+    require(sum(mpx_report["argmax_hist"]) == mods.mpx.probs.shape[0]
+            and all(np.isfinite(mpx_report["hyp_dist"])),
+            f"mini_tigdog multiplex report {mpx_report}")
+    log(f"[mini_tigdog] multiplex after training, from the init_camera_emb pass: "
+        f"{json.dumps(mpx_report)}")
     n_w, n_t, spe = seen["warm"], seen["train"], mods.steps_per_epoch
     require(n_w == o["num_reps"] * spe and n_t == MT_EPOCHS * spe,
             f"mini_tigdog: {n_w} warm-up and {n_t} train steps at {spe} steps an epoch")
@@ -2320,6 +2365,7 @@ def phase_mini_tigdog(torch, device, card, tmp):
                          for name in gen_launches},
             "train_launches": train_launches, "warmup_steps": n_w, "train_steps": n_t,
             "loss_first_last_tenth": (first, last), "columns": columns, "kernels": kernels,
+            "multiplex": mpx_report,
             "seconds": secs}
 
 

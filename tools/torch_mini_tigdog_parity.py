@@ -14,16 +14,24 @@ MaskFlownet weights are needed) and runs the evaluate CLI once per column,
 each in a subprocess, parsing `mean iou ..., pck.1 ..., pck.15 ...`.
 
     python3 tools/torch_mini_tigdog_parity.py [--epochs 40] [--out FILE]
-        [--root DIR] [--device cuda|cpu]
+        [--root DIR] [--device cuda|cpu] [--seed N]
 
 Runs on the card unless --device cpu, and exits without a card otherwise.
 Prints the results table, and writes it to --out when given (rewritten
 after every column; never DEMO_RESULTS.md, the JAX tool's file). Writes
-nothing outside --root and --out.
+nothing outside --root and --out. --seed N trains with N in place of 0 for
+the training seed (the MeshNet init), the multiplex tables' init and the
+loader's shuffle (`seeded`). After training it prints the multiplex report
+(`multiplex_report`): each hypothesis's distance from its row after the
+init_camera_emb pass, the histogram of argmax hypotheses over the training
+frames, and how far the mean shape and the BatchNorm running statistics moved.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import json
 import os
 import os.path as osp
 import pickle
@@ -237,6 +245,100 @@ def train_opts(root, epochs, guesses=4, device="cuda"):
     return o
 
 
+@contextlib.contextmanager
+def seeded(seed: int):
+    """multiframe_main.train with `seed` in place of 0 for the training seed
+    (cfg.train.seed, which seeds the MeshNet init), the quaternion multiplex
+    tables' init and the shuffled loader's order. Seed 0 changes nothing."""
+    from acfm_video_3d_reconstruction_tpu_torch.cli import multiframe_main
+    from acfm_video_3d_reconstruction_tpu_torch.multiplex import state as mpx_lib
+
+    real_cfg, real_loader = multiframe_main.build_cfg, multiframe_main.DataLoader
+    real_init = mpx_lib.init_quat_multiplex
+
+    def build_cfg(o):
+        cfg = real_cfg(o)
+        return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=seed))
+
+    def loader(dataset, batch_size, shuffle=True, **kw):
+        return real_loader(dataset, batch_size, shuffle=shuffle,
+                           **(dict(kw, seed=seed) if shuffle else kw))
+
+    def init(*a, **kw):
+        return real_init(*a, **dict(kw, seed=seed))
+
+    multiframe_main.build_cfg, multiframe_main.DataLoader = build_cfg, loader
+    mpx_lib.init_quat_multiplex = init
+    try:
+        yield
+    finally:
+        multiframe_main.build_cfg, multiframe_main.DataLoader = real_cfg, real_loader
+        mpx_lib.init_quat_multiplex = real_init
+
+
+def snapshot(mods) -> dict:
+    """What multiplex_report reads off a multiframe MFModules, as numpy
+    copies: the camera table, the probabilities, the mean shape and the
+    BatchNorm running statistics (by state_dict key)."""
+    return {
+        "cams": mods.mpx.cams.detach().cpu().numpy().copy(),
+        "probs": mods.mpx.probs.detach().cpu().numpy().copy(),
+        "mean_v": mods.model.get_mean_shape().detach().cpu().numpy().copy(),
+        "bn": {k: v.detach().cpu().numpy().copy() for k, v in mods.model.state_dict().items()
+               if k.endswith(("running_mean", "running_var"))},
+    }
+
+
+@contextlib.contextmanager
+def recording_start(out: dict):
+    """Puts the snapshot of the modules as the pose warm-up begins (after
+    the init_camera_emb pass) into out["start"]."""
+    from acfm_video_3d_reconstruction_tpu_torch.train import multiframe as mf
+
+    real = mf.make_warmup_step
+
+    def make(mods):
+        out["start"] = snapshot(mods)
+        return real(mods)
+
+    mf.make_warmup_step = make
+    try:
+        yield out
+    finally:
+        mf.make_warmup_step = real
+
+
+def multiplex_report(start: dict, now: dict) -> dict:
+    """How the multiplex and the shape moved from `start` to `now` (two
+    snapshots): per hypothesis the mean over frames of the L2 distance of
+    its raw camera row from the start; the histogram of the argmax
+    hypothesis over the training frames (the first maximum, as argmax
+    takes it) and its share at hypothesis 0 (the GT camera's slot after
+    init_camera_emb); the mean shape's relative L2 distance from the start,
+    and the root-mean-square change of the BatchNorm running means and of
+    the running variances over all layers (the means start at 0)."""
+    G = now["cams"].shape[0]
+    hist = np.bincount(now["probs"].argmax(1), minlength=G)
+
+    def bn(kind):
+        keys = [k for k in start["bn"] if k.endswith(kind)]
+        if not keys:
+            return float("nan")
+        d = np.concatenate([(now["bn"][k] - start["bn"][k]).ravel() for k in keys])
+        return float(np.sqrt(np.mean(np.square(d, dtype=np.float64))))
+
+    return {
+        "hyp_dist": [float(np.linalg.norm(now["cams"][g] - start["cams"][g], axis=-1).mean())
+                     for g in range(G)],
+        "argmax_hist": [int(x) for x in hist],
+        "share_hyp0": float(hist[0] / max(hist.sum(), 1)),
+        "mean_shape_rel": float(np.linalg.norm(now["mean_v"] - start["mean_v"])
+                                / np.linalg.norm(start["mean_v"])),
+        "bn_mean_rms": bn("running_mean"),
+        "bn_var_rms": bn("running_var"),
+    }
+
+
 # the JAX tool's evaluation plan, in its order: (key, label, extra flags);
 # `iters` stands for --num_optim_iter's value
 PLAN = [
@@ -307,8 +409,9 @@ def run_eval(o, extra) -> dict:
     return parse_metrics(text)
 
 
-def format_table(args, before, res, dt, where, partial=False) -> str:
-    """The JAX tool's 8-column table (nan -> 'n/a' for pending columns)."""
+def format_table(args, before, res, dt, where, partial=False, report=None) -> str:
+    """The JAX tool's 8-column table (nan -> 'n/a' for pending columns),
+    with the multiplex report below it when given."""
 
     def cell(d, k):
         v = d[k]
@@ -338,7 +441,10 @@ def format_table(args, before, res, dt, where, partial=False) -> str:
         "| held-out, GT camera (diagnostic) | held-out, gauge-aligned GT camera |\n"
         "|---|---|---|---|---|---|---|---|---|\n"
     )
-    return head + "\n".join(rows) + f"\n\ntrain wall-clock {dt:.1f}s.\n"
+    tail = f"\n\ntrain wall-clock {dt:.1f}s, seed {args.seed}.\n"
+    if report is not None:
+        tail += f"\nmultiplex report after training: {json.dumps(report)}\n"
+    return head + "\n".join(rows) + tail
 
 
 def parse(argv=None) -> argparse.Namespace:
@@ -359,6 +465,8 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--skip_before", action="store_true",
                     help="skip the random-init column")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the training seed, the multiplex init's and the loader's (seeded)")
     return ap.parse_args(argv)
 
 
@@ -388,15 +496,19 @@ def main(argv=None) -> int:
     where = card_name(device)
 
     nan = {"mean_iou": float("nan"), "pck_0.1": float("nan"), "pck_0.15": float("nan")}
-    before, dt = dict(nan), 0.0
+    before, dt, report = dict(nan), 0.0, None
     if not args.skip_train:
         if not args.skip_before:
             before = run_eval(o, [])
             print("before (random init):", before, flush=True)
         t0 = time.perf_counter()
-        multiframe_main.train(o)
+        with seeded(args.seed), recording_start({}) as rec:
+            mods = multiframe_main.train(o)
         dt = time.perf_counter() - t0
+        report = multiplex_report(rec["start"], snapshot(mods))
+        del mods
         print(f"trained {args.epochs} epochs in {dt:.1f}s", flush=True)
+        print(f"multiplex report: {json.dumps(report)}", flush=True)
 
     res = {key: dict(nan) for key, _, _ in PLAN}
     for key, label, _ in PLAN:
@@ -404,8 +516,9 @@ def main(argv=None) -> int:
         print(f"{label}: {res[key]}", flush=True)
         if args.out:
             with open(args.out, "w") as fh:
-                fh.write(format_table(args, before, res, dt, where, partial=True))
-    text = format_table(args, before, res, dt, where)
+                fh.write(format_table(args, before, res, dt, where, partial=True,
+                                      report=report))
+    text = format_table(args, before, res, dt, where, report=report)
     print(text, flush=True)
     if args.out:
         with open(args.out, "w") as fh:
