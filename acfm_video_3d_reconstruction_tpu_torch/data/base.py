@@ -5,7 +5,9 @@ scipy, the same draws from the same generator, so the same samples):
 bbox perturb/square -> crop (bg=1 for image, 0 for mask) -> scale to
 img_size -> random mirror (kp permutation + quaternion reflection) ->
 kp/sfm_pose normalization to [-1, 1]. Batches are dicts of numpy arrays;
-the train loop moves them to the device (train/prefetch.py).
+the train loop moves them to the device (train/prefetch.py). The image's
+decode and the crop and resize of image and mask are the spans
+`data.decode` and `data.crop` (utils/tracing.py).
 SingleImageDatasetV2 adds the random affine augmentation (cv2.warpAffine,
 imported lazily), drawing from the same generator in the same order.
 """
@@ -15,6 +17,7 @@ import os.path as osp
 
 import numpy as np
 
+from ..utils import tracing
 from . import image_utils
 
 
@@ -67,7 +70,8 @@ class SingleImageDataset:
         trans = np.asarray(np.copy(data_sfm.trans), np.float64).reshape(-1)[:2].copy()
         quat = quaternion_from_matrix_np(np.asarray(data_sfm.rot, np.float64))
 
-        img = self._load_image(str(data.rel_path))
+        with tracing.span("data.decode"):
+            img = self._load_image(str(data.rel_path))
         mask = np.asarray(data.mask, np.float64)
 
         bbox = np.array(
@@ -82,18 +86,19 @@ class SingleImageDataset:
         bbox = image_utils.square_bbox(bbox)
 
         # crop + kp/sfm translation
-        img = image_utils.crop(img, bbox, bgval=1)
-        mask = image_utils.crop(mask, bbox, bgval=0)[..., 0]
-        kp[vis, 0] -= bbox[0]
-        kp[vis, 1] -= bbox[1]
-        trans[0] -= bbox[0]
-        trans[1] -= bbox[1]
+        with tracing.span("data.crop"):
+            img = image_utils.crop(img, bbox, bgval=1)
+            mask = image_utils.crop(mask, bbox, bgval=0)[..., 0]
+            kp[vis, 0] -= bbox[0]
+            kp[vis, 1] -= bbox[1]
+            trans[0] -= bbox[0]
+            trans[1] -= bbox[1]
 
-        # scale to img_size
-        h, w = img.shape[:2]
-        s = self.img_size / float(max(h, w))
-        img, _ = image_utils.resize_img(img, s)
-        mask, _ = image_utils.resize_img(mask, s)
+            # scale to img_size
+            h, w = img.shape[:2]
+            s = self.img_size / float(max(h, w))
+            img, _ = image_utils.resize_img(img, s)
+            mask, _ = image_utils.resize_img(mask, s)
         kp[vis, :2] *= s
         scale = scale * s
         trans = trans * s

@@ -15,6 +15,7 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 
+from ..utils import tracing
 from . import image_utils
 
 
@@ -92,7 +93,14 @@ def add_mask_geometry(batch: dict, max_boundary_points: int = 1000) -> dict:
     but its edt loss actually consumes the raw unnormalized DT
     (monocular/main.py:184-187, 268), so the barrier tensor is dead host
     work on the known CPU-bottleneck path.
+
+    Either path is the span `data.mask_geometry` (utils/tracing.py).
     """
+    with tracing.span("data.mask_geometry"):
+        return _mask_geometry(batch, max_boundary_points)
+
+
+def _mask_geometry(batch: dict, max_boundary_points: int) -> dict:
     from . import native
 
     masks = np.asarray(batch["mask"])

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
+
 
 def screened_poisson_solve(
     mean_v: torch.Tensor,
@@ -37,8 +39,11 @@ def screened_poisson_solve(
     rhs = (L.T @ (L @ mean_v))[None] + torch.einsum("kv,bkc->bvc", A, target)
     # cholesky_ex: the same factor without cholesky's check of `info`, a
     # read on the host that waits for the stream; a matrix that is not
-    # positive definite gives a non-finite factor, as JAX's cho_factor does
-    chol = torch.linalg.cholesky_ex(M).L
+    # positive definite gives a non-finite factor, as JAX's cho_factor does;
+    # while tracing is on such factors count as `solve.failures`
+    chol, info = torch.linalg.cholesky_ex(M)
+    if tracing.on():
+        tracing.count_device("solve.failures", info != 0)
     rhs_flat = rhs.permute(1, 0, 2).reshape(V, B * 3)
     sol = torch.cholesky_solve(rhs_flat, chol)
     return sol.reshape(V, B, 3).permute(1, 0, 2)

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 from typing import Optional
 
 import torch
@@ -29,6 +30,10 @@ from ..multiplex import state as mpx_lib
 from ..ops import rasterizer as ras
 from ..train import monocular
 from ..train.multiframe import _dense_grads
+from ..utils import tracing
+
+# predict_monocular's calls in this process, the unit of its span
+_PREDICT_CALLS = itertools.count()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +50,9 @@ class TTOConfig:
 
 
 def predict_monocular(mods: monocular.MonoModules, batch: dict) -> dict:
-    """Full forward -> {lbs, mean_shape, faces, kp_pred, verts, cam_pred, mask_pred}."""
-    with torch.inference_mode():
+    """Full forward -> {lbs, mean_shape, faces, kp_pred, verts, cam_pred, mask_pred};
+    the span `predict`, whose unit is the call's number in the process."""
+    with tracing.span("predict", next(_PREDICT_CALLS)), torch.inference_mode():
         _, aux = monocular.forward(mods, monocular.to_device_batch(mods, batch))
         model = mods.model
         return {

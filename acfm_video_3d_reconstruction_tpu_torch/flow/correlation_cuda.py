@@ -13,7 +13,9 @@ sum_c f1[:, c, y, x] * f2[:, c, y+dy, x+dx] / C, zero outside the image.
 the shape: which of the source's two templates runs and with what tiles,
 grid, block and shared memory. `launch(fn, f1, f2, out, md)` only
 launches, on contiguous inputs and an output made by the caller;
-`correlation_cuda` checks, allocates, launches and counts.
+`correlation_cuda` checks, allocates, launches and counts the launch in
+utils/tracing.py's host counter `launch.corr_md4` or `launch.corr_md2`
+(the plain version never counts).
 """
 from __future__ import annotations
 
@@ -26,14 +28,11 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.cuda_build import load
+from ..utils import tracing
 
 # the displacement radii of MaskFlownet's two stages, for which the kernel
 # is instantiated
 MDS = (4, 2)
-
-# Kernel launches on the card, by displacement radius; the plain version
-# never counts.
-LAUNCHES = {f"corr_md{md}": 0 for md in MDS}
 
 # csrc/correlation.cu's templates, in the order of its `kernel` argument,
 # and the constants it is compiled with: P pixels of a row a thread; the
@@ -170,7 +169,7 @@ def correlation_cuda(f1: torch.Tensor, f2: torch.Tensor, md: int = 4) -> torch.T
     f2 = f2.contiguous()
     out = torch.empty((B, (2 * md + 1) ** 2, H, W), dtype=torch.float32, device=f1.device)
     launch(entry(), f1, f2, out, md)
-    LAUNCHES[f"corr_md{md}"] += 1
+    tracing.count(f"launch.corr_md{md}")
     return out
 
 

@@ -18,6 +18,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import maskflownet as mfn
 from . import ops
 
@@ -193,11 +194,12 @@ def make_flow_fn(net: mfn.MaskFlownet, image_size: int,
                  net_hw: tuple[int, int] = (NET_H, NET_W)):
     """Batch preprocessor: attach batch['optical_flows'] from a frozen
     MaskFlownet pass over every consecutive frame pair (reference set_input,
-    multiframe/main.py:385-411)."""
+    multiframe/main.py:385-411), in the span `flow.infer`."""
 
     def flow_fn(batch: dict) -> dict:
-        batch = dict(batch)
-        batch["optical_flows"] = clip_flows(net, batch["img"], image_size, net_hw)
-        return batch
+        with tracing.span("flow.infer"):
+            batch = dict(batch)
+            batch["optical_flows"] = clip_flows(net, batch["img"], image_size, net_hw)
+            return batch
 
     return flow_fn

@@ -17,7 +17,9 @@ returns untiled (B, H, W) maps. In soft mode it goes through `SoftRasterize`,
 whose backward is the kernel csrc/raster_bwd.cu on a CUDA tensor and
 `backward_plain` on a CPU tensor. The kernels and the plain versions skip
 the (pixel, slot) pairs outside `cull_windows`, which are out of radius, and
-`cull_pair_counts` gives the pairs the kernels walk.
+`cull_pair_counts` gives the pairs the kernels walk. Each kernel launch adds
+one to utils/tracing.py's host counter `launch.soft`, `launch.hard` or
+`launch.soft_bwd`; the plain versions never count.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import tracing
 from .cuda_build import load
 
 SIGMA = 1e-4
@@ -35,9 +38,6 @@ BLUR_RADIUS = math.log(1.0 / 1e-4 - 1.0) * SIGMA
 BIG = 1e10  # empty z-buffer value
 K_CHUNK = 64  # the bin capacity is rounded up to a multiple of this
 SLOT_CHUNK = 8  # slots per step of the plain versions' walk over a bin
-
-# Kernel launches on the card, by kernel; the plain versions never count.
-LAUNCHES = {"soft": 0, "hard": 0, "soft_bwd": 0}
 
 
 class BinnedFrags(NamedTuple):
@@ -131,6 +131,8 @@ def _face_tables(verts, faces, image_size, tile_h, tile_w, K, margin):
         ov = _tile_overlap(verts, faces, image_size, tile_h, tile_w, margin)
     B, T, F = ov.shape
     c = torch.cumsum(ov.to(torch.int32), dim=-1)
+    if tracing.on():  # the faces past K, from each bin's overlap count
+        tracing.count_device("raster.faces_dropped", (c[..., -1] - K).clamp_(min=0))
     pos = torch.where(ov & (c <= K), c - 1, K).long()  # slot K = dump
     idx = torch.full((B, T, K + 1), -1, dtype=torch.int32, device=verts.device)
     face_ids = torch.arange(F, dtype=torch.int32, device=verts.device)
@@ -625,7 +627,7 @@ def forward_cuda(table, idx, image_size, tile_h, tile_w, sigma, blur_radius,
         zbuf=torch.empty(shape, dtype=torch.float32, device=table.device),
     )
     launch_fwd(fn, table, idx, counts, out, image_size, tile_h, tile_w, sigma, blur_radius, soft)
-    LAUNCHES["soft" if soft else "hard"] += 1
+    tracing.count("launch.soft" if soft else "launch.hard")
     return out
 
 
@@ -642,7 +644,7 @@ def backward_cuda(table, idx, dS, image_size, tile_h, tile_w, sigma,
     counts = (idx >= 0).sum(-1, dtype=torch.int32).contiguous()
     grad = torch.empty_like(table)
     launch_bwd(fn, table, counts, dS, grad, image_size, tile_h, tile_w, sigma, blur_radius)
-    LAUNCHES["soft_bwd"] += 1
+    tracing.count("launch.soft_bwd")
     return grad
 
 

@@ -5,8 +5,8 @@ Replaces the reference's visdom server + loss_log.txt
 object per log call), a human-readable line mirrors the reference's
 `print_current_scalars`, and wall-clock per-step timing replaces the
 `time/itr` print (SURVEY.md §5). A copy of
-acfm_video_3d_reconstruction_tpu/train/metrics_logger.py, with
-torch.profiler in place of jax.profiler.
+acfm_video_3d_reconstruction_tpu/train/metrics_logger.py without its
+profiler helpers (the port's spans are utils/tracing.py's).
 """
 from __future__ import annotations
 
@@ -57,30 +57,6 @@ class MetricsLogger:
 
     def close(self):
         self._f.close()
-
-
-def start_profiler():
-    """A started torch.profiler trace of host and device activity; pass it
-    to stop_profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
-    prof.start()
-    return prof
-
-
-def stop_profiler(prof, logdir: str) -> str:
-    """Stop the trace and write it to <logdir>/trace.json (chrome format);
-    returns the path."""
-    prof.stop()
-    os.makedirs(logdir, exist_ok=True)
-    out = os.path.join(logdir, "trace.json")
-    prof.export_chrome_trace(out)
-    return out
 
 
 def dump_config(save_dir: str, cfg) -> None:

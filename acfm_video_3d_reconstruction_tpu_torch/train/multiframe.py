@@ -47,6 +47,7 @@ from ..models.template import Template
 from ..multiplex import state as mpx_lib
 from ..ops import rasterizer as ras
 from ..parallel import mesh as pmesh
+from ..utils import tracing
 from . import prefetch
 from .monocular import normalize_imagenet
 
@@ -447,19 +448,26 @@ def make_train_step(mods: MFModules, *, k: int, drop_deform: bool = True,
     flow loss is on. Under a process group (parallel/mesh.py) `batch` is
     this rank's block of the global batch: the gradients are averaged over
     the ranks after _dense_grads, the write-back takes every rank's rows
-    and the metrics are the global means."""
+    and the metrics are the global means. The forward, the backward and the
+    update (from the dense gradients through the write-back) are the spans
+    `train.forward`, `train.backward` and `train.optimizer` of unit
+    mods.step (utils/tracing.py)."""
 
     def train_step(batch: dict) -> dict:
         mods.opt.zero_grad(set_to_none=True)
-        loss, aux = forward(mods, batch, k=k, train=True, drop_deform=drop_deform,
-                            detach_camera=detach_camera, use_gtpose=use_gtpose)
-        loss.backward()
-        _dense_grads(mods.opt)
-        if pmesh.active():
-            pmesh.all_reduce_grads(_opt_params(mods.opt))
-        _set_lr(mods)
-        mods.opt.step()
-        mpx_lib.scatter_probs(mods.mpx.state(), batch["frames_idx"], aux["sel"], aux["probs"])
+        with tracing.span("train.forward", mods.step):
+            loss, aux = forward(mods, batch, k=k, train=True, drop_deform=drop_deform,
+                                detach_camera=detach_camera, use_gtpose=use_gtpose)
+        with tracing.span("train.backward", mods.step):
+            loss.backward()
+        with tracing.span("train.optimizer", mods.step):
+            _dense_grads(mods.opt)
+            if pmesh.active():
+                pmesh.all_reduce_grads(_opt_params(mods.opt))
+            _set_lr(mods)
+            mods.opt.step()
+            mpx_lib.scatter_probs(mods.mpx.state(), batch["frames_idx"], aux["sel"],
+                                  aux["probs"])
         mods.step += 1
         return pmesh.reduce_metrics({name: v.detach() for name, v in aux["metrics"].items()})
 

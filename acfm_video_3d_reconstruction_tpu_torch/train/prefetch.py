@@ -4,7 +4,9 @@ Counterpart of acfm_video_3d_reconstruction_tpu/train/prefetch.py: one
 producer thread, a bounded queue, batch order kept, exceptions re-raised at
 the consumer and a prompt stop when the consumer abandons the iterator. The
 loader's numpy work and the batch's upload run on the producer thread while
-the previous step runs on the card; `to_device` is the upload.
+the previous step runs on the card; `to_device` is the upload. On that
+thread the loader's next() is the span `data.load` and the upload the span
+`data.upload` (utils/tracing.py).
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import threading
 from typing import Callable, Iterable, Iterator
 
 import torch
+
+from ..utils import tracing
 
 _SENTINEL = object()
 
@@ -24,9 +28,10 @@ def to_device(batch: dict, keys, device: torch.device, int_keys=()) -> dict:
     stream), so the step's kernels, launched later on that stream, are
     ordered after it."""
     out = {}
-    for k in keys:
-        t = torch.as_tensor(batch[k], dtype=torch.long if k in int_keys else torch.float32)
-        out[k] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+    with tracing.span("data.upload"):
+        for k in keys:
+            t = torch.as_tensor(batch[k], dtype=torch.long if k in int_keys else torch.float32)
+            out[k] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
     return out
 
 
@@ -57,8 +62,11 @@ def prefetch(loader: Iterable, prep: Callable, depth: int = 2) -> Iterator:
 
     def worker():
         try:
-            for item in loader:
-                if not put(prep(item)):
+            items = iter(loader)
+            while True:
+                with tracing.span("data.load"):
+                    item = next(items, _SENTINEL)
+                if item is _SENTINEL or not put(prep(item)):
                     return
         except BaseException as e:  # noqa: BLE001 - re-raised on consumer side
             failure.append(e)

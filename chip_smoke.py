@@ -582,23 +582,26 @@ def plain_rasterizer():
         rc.forward_cuda, rc.backward_cuda = kernels
 
 
-def _counters():
-    """Every kernel's launch counter dict."""
-    from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
-    from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
+# the kernels whose launches utils/tracing.py counts, as `launch.<kernel>`
+KERNELS = ("soft", "hard", "soft_bwd", "corr_md4", "corr_md2")
+# the launch counts that zero_launches() last read
+_ZERO = dict.fromkeys(KERNELS, 0)
 
-    return rc.LAUNCHES, cc.LAUNCHES
+
+def _launch_counts() -> dict:
+    from acfm_video_3d_reconstruction_tpu_torch.utils import tracing
+
+    counts = tracing.counters()
+    return {k: counts.get(f"launch.{k}", 0) for k in KERNELS}
 
 
 def zero_launches() -> None:
-    for counts in _counters():
-        for k in counts:
-            counts[k] = 0
+    _ZERO.update(_launch_counts())
 
 
 def read_launches() -> dict:
     """All kernels' launches since zero_launches()."""
-    return {k: v for counts in _counters() for k, v in counts.items()}
+    return {k: n - _ZERO[k] for k, n in _launch_counts().items()}
 
 
 def only(**expected) -> dict:
@@ -1608,13 +1611,12 @@ def _mf_sync_checks(torch, mods, batch, flow_fn, upload, k):
 def uncounted():
     """Within the block kernel launches leave the counters as they were: a
     check's own launches beside a counted path."""
-    saved = read_launches()
+    before = _launch_counts()
     try:
         yield
     finally:
-        for counts in _counters():
-            for k in counts:
-                counts[k] = saved[k]
+        for k, n in _launch_counts().items():
+            _ZERO[k] += n - before[k]
 
 
 # the evaluate phase: the CLI's TTO iterations; the iterations of the

@@ -40,6 +40,7 @@ from acfm_video_3d_reconstruction_tpu_torch.flow import maskflownet as tmfn
 from acfm_video_3d_reconstruction_tpu_torch.flow import ops as tops
 from acfm_video_3d_reconstruction_tpu_torch.models import from_jax
 from acfm_video_3d_reconstruction_tpu_torch.ops import grid_sample as tgs
+from acfm_video_3d_reconstruction_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -100,9 +101,9 @@ def test_correlation_dispatch_on_cpu_runs_plain_version():
     rng = np.random.default_rng(7)
     f1, f2 = (torch.from_numpy(rng.normal(size=(1, 5, 4, 6)).astype(np.float32))
               for _ in range(2))
-    before = dict(cc.LAUNCHES)
+    before = tracing.counters()
     assert torch.equal(tops.correlation(f1, f2, 2), cc.correlation_plain(f1, f2, 2))
-    assert cc.LAUNCHES == before
+    assert tracing.counters() == before
 
 
 def test_correlation_rejects_unsupported_inputs():
@@ -281,11 +282,11 @@ def test_maskflownet_matches_jax(port_net, jax_ref):
     and stage 2's inputs c30 / c40, within vector relative error 1e-3, and
     the same pixels zeroed by the warp's validity threshold."""
     im0, im1 = _nchw(jax_ref["im0"]), _nchw(jax_ref["im1"])
-    before = dict(cc.LAUNCHES)
+    before = tracing.counters()
     with torch.no_grad():
         s_preds, s_occ, (_, _, _, c30, c40) = port_net.MaskFlownet_S(im0, im1)
         preds, visuals = port_net(im0, im1)
-    assert cc.LAUNCHES == before
+    assert tracing.counters() == before
     assert [tuple(p.shape) for p in preds] == [(2, 2, 64 // s, 128 // s)
                                                for s in (64, 32, 16, 8, 4)]
     pairs = [(f"stage1 flow{6 - i}", s_preds[i], jax_ref["s_preds"][i]) for i in range(5)]

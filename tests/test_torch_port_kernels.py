@@ -16,6 +16,7 @@ from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
 from acfm_video_3d_reconstruction_tpu_torch.geometry import camera, icosphere
 from acfm_video_3d_reconstruction_tpu_torch.ops import raster_checks as chk
 from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
+from acfm_video_3d_reconstruction_tpu_torch.utils import tracing
 from test_torch_port_correlation import CORR_IDS, CORR_SHAPES
 
 torch.set_num_threads(1)
@@ -68,11 +69,11 @@ class TestKernelWrapper:
         tables, bit for bit, and launches no kernel."""
         proj, faces = _small_scene()
         blur = rc.BLUR_RADIUS if soft else 0.0
-        before = dict(rc.LAUNCHES)
+        before = tracing.counters()
         got = rc.rasterize_binned(proj, faces, IMG, 320, blur_radius=blur, soft=soft)
         table, idx, th, tw = rc.bin_faces(proj, faces, IMG, 320, blur)
         want = rc.forward_plain(table, idx, IMG, th, tw, rc.SIGMA, blur, soft)
-        assert rc.LAUNCHES == before
+        assert tracing.counters() == before
         for name, a, b in zip(want._fields, got, want):
             assert torch.equal(a, b), name
 
@@ -89,13 +90,13 @@ class TestKernelWrapper:
         proj, faces = proj.to(cuda_device), faces.to(cuda_device)
         K = rc.auto_K(faces.shape[0], size, 192)
         blur = rc.BLUR_RADIUS if soft else 0.0
-        before = dict(rc.LAUNCHES)
+        before = tracing.counters()
         kern = rc.rasterize_binned(proj, faces, size, K, blur_radius=blur, soft=soft)
         table, idx, th, tw = rc.bin_faces(proj, faces, size, K, blur)
         plain = rc.forward_plain(table, idx, size, th, tw, rc.SIGMA, blur, soft)
         torch.cuda.synchronize()
         mode = "soft" if soft else "hard"
-        assert rc.LAUNCHES[mode] == before[mode] + 1
+        assert tracing.counters()[f"launch.{mode}"] == before.get(f"launch.{mode}", 0) + 1
         agree = kern.pix_to_face == plain.pix_to_face
         assert agree.float().mean().item() > 0.999
         if soft:
@@ -160,12 +161,12 @@ class TestKernelWrapper:
         one forward and one backward kernel, and gives finite gradients."""
         proj, faces, size = _bench_scene(B=2)
         proj = proj.to(cuda_device).requires_grad_(True)
-        before = dict(rc.LAUNCHES)
+        before = tracing.counters()
         fr = rc.rasterize_binned(proj, faces.to(cuda_device), size, 192, soft=True)
         (1.0 - torch.exp(fr.S)).sum().backward()
         torch.cuda.synchronize()
-        assert rc.LAUNCHES["soft"] == before["soft"] + 1
-        assert rc.LAUNCHES["soft_bwd"] == before["soft_bwd"] + 1
+        assert tracing.counters()["launch.soft"] == before.get("launch.soft", 0) + 1
+        assert tracing.counters()["launch.soft_bwd"] == before.get("launch.soft_bwd", 0) + 1
         assert bool(torch.isfinite(proj.grad).all())
         assert proj.grad[..., :2].abs().sum() > 0
 
@@ -188,10 +189,10 @@ class TestCorrelationKernel:
         summation order)."""
         g = torch.Generator().manual_seed(md * 1000 + C)
         f1, f2 = (torch.randn(B, C, H, W, generator=g).to(cuda_device) for _ in range(2))
-        before = dict(cc.LAUNCHES)
+        before = tracing.counters()
         kern = cc.correlation(f1, f2, md)
         torch.cuda.synchronize()
-        assert cc.LAUNCHES[f"corr_md{md}"] == before[f"corr_md{md}"] + 1
+        assert tracing.counters()[f"launch.corr_md{md}"] == before.get(f"launch.corr_md{md}", 0) + 1
         again = cc.correlation(f1, f2, md)
         torch.cuda.synchronize()
         assert torch.equal(kern, again)

@@ -28,8 +28,8 @@ from acfm_video_3d_reconstruction_tpu_torch import config as tcfg
 from acfm_video_3d_reconstruction_tpu_torch.eval import predictor as tpred
 from acfm_video_3d_reconstruction_tpu_torch.models import from_jax
 from acfm_video_3d_reconstruction_tpu_torch.models import template as ttemplate
-from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
 from acfm_video_3d_reconstruction_tpu_torch.train import monocular as tmono
+from acfm_video_3d_reconstruction_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -134,9 +134,9 @@ def test_eval_step_on_cpu_launches_no_kernel(slice_pair):
     launch is counted, and a second step gives the same outputs bit for
     bit."""
     _, _, mods_t, batch = slice_pair
-    before = dict(rc.LAUNCHES)
+    before = tracing.counters()
     a = tmono.make_eval_step(mods_t)(batch)
     b = tmono.make_eval_step(mods_t)(batch)
-    assert rc.LAUNCHES == before
+    assert tracing.counters() == before
     for name in ("mask_pred", "pred_v", "kp_pred", "cam_pred"):
         assert torch.equal(a[name], b[name]), name
