@@ -31,6 +31,7 @@ from ..ops import rasterizer as ras
 from ..train import monocular
 from ..train.multiframe import _dense_grads
 from ..utils import tracing
+from . import predict_graph
 
 # predict_monocular's calls in this process, the unit of its span
 _PREDICT_CALLS = itertools.count()
@@ -51,13 +52,13 @@ class TTOConfig:
 
 def predict_monocular(mods: monocular.MonoModules, batch: dict) -> dict:
     """Full forward -> {lbs, mean_shape, faces, kp_pred, verts, cam_pred, mask_pred};
-    the span `predict`, whose unit is the call's number in the process."""
+    the span `predict`, whose unit is the call's number in the process. On a
+    CUDA device the forward is replayed as a CUDA graph (predict_graph.py)."""
     with tracing.span("predict", next(_PREDICT_CALLS)), torch.inference_mode():
-        _, aux = monocular.forward(mods, monocular.to_device_batch(mods, batch))
-        model = mods.model
+        aux = predict_graph.forward_outputs(mods, batch)
         return {
-            "lbs": model.get_lbs(),
-            "mean_shape": model.get_mean_shape().detach(),
+            "lbs": aux["lbs"],
+            "mean_shape": aux["mean_shape"],
             "faces": mods.template.faces,
             "kp_pred": aux["kp_pred"],
             "verts": aux["pred_v"],
