@@ -1,8 +1,9 @@
 """TigDog / YTVIS / COCO video datasets (multiframe pipeline).
 
-A copy of acfm_video_3d_reconstruction_tpu/data/tigdog.py (numpy and cv2
-only): the same files read and written, the same default_rng draws in the
-same order and the same cv2 calls, so the same batches bit for bit.
+A copy of acfm_video_3d_reconstruction_tpu/data/tigdog.py (numpy and cv2,
+and the port's tracing counter below): the same files read and written,
+the same default_rng draws in the same order and the same cv2 calls, so
+the same batches bit for bit.
 
 Parity targets:
   - multiframe/data/tigdog_final.py (video-level pkls
@@ -15,6 +16,10 @@ Parity targets:
     camera-transport params, [-1,1] normalization),
   - multiframe/data/ytvis_final.py / coco_final.py (mask+bbox only clips
     with placeholder kps/poses).
+
+MultiFrameDataset counts the clips it assembles whose frames carry no
+visible keypoint (a mask-only source's placeholder landmarks) into the
+traced host counter `data.mask_only_clips` (utils/tracing.py).
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import pickle
 
 import numpy as np
 
+from ..utils import tracing
 from . import image_utils
 from .base import quaternion_from_matrix_np, quaternion_matrix_np
 
@@ -264,6 +270,8 @@ class MultiFrameDataset:
             bboxes.append(np.asarray(s["bboxes"], np.float64))
             kps.append(np.asarray(s["landmarks"], np.float64).copy())
             poses.append(np.asarray(s["sfm_poses"], np.float64).copy())
+        if not any((k[:, 2] > 0).any() for k in kps):
+            tracing.count_traced("data.mask_only_clips")
 
         T = len(frames)
         if self.tight_bboxes:

@@ -171,31 +171,35 @@ def decode_selected_cameras(mods: MFModules, cams_table: torch.Tensor,
                             mpx: mpx_lib.MultiplexState, batch: dict, k: int):
     """Top-k hypothesis selection + decode + mirror/affine transport.
     Returns (cam_pred (k, BT, 7), sel (k, BT)). (reference
-    multiframe/main.py:541-582)"""
+    multiframe/main.py:541-582). The span `multiplex.select` of unit
+    mods.step; the views it decodes, k x BT, count into `multiplex.views`
+    (utils/tracing.py)."""
     mp = mods.cfg.multiplex
     frames_idx = batch["frames_idx"]
-    flat = frames_idx.reshape(-1).long()
     G = cams_table.shape[0]
-    raw = cams_table[:, flat, :]  # (G, BT, C)
-    if k < G:
-        sel = mpx_lib.topk_hypotheses(mpx, frames_idx, k)
-        raw = mpx_lib.select_hypotheses(raw, sel)
-    else:
-        sel = torch.arange(G, device=flat.device)[:, None].expand(G, flat.shape[0])
-    if mp.az_el_cam:
-        quat_bias = None
-        if mp.az_el_quat_bias:
-            quat_bias = cam_utils.az_el_quat_biases_on(G, raw.device)[sel]
-        cams = cam_utils.decode_az_el_camera(
-            raw, scale_lr_decay=mp.scale_lr_decay, scale_bias=mp.scale_bias,
-            az_range_deg=mp.az_euler_range, el_range_deg=mp.el_euler_range,
-            cyc_range_deg=mp.cyc_euler_range, quat_bias=quat_bias)
-    else:
-        cams = cam_utils.decode_quat_camera(raw, scale_lr_decay=mp.scale_lr_decay)
-    mirror = batch["mirror_flag"].reshape(-1).to(cams.dtype)
-    cams = cam_utils.mirror_camera(cams, mirror[None].expand(cams.shape[:2]))
-    transforms = batch["transforms"].reshape(1, -1, 4)
-    cams = cam_utils.transform_camera(cams, transforms.expand(cams.shape[:2] + (4,)))
+    with tracing.span("multiplex.select", mods.step):
+        flat = frames_idx.reshape(-1).long()
+        raw = cams_table[:, flat, :]  # (G, BT, C)
+        if k < G:
+            sel = mpx_lib.topk_hypotheses(mpx, frames_idx, k)
+            raw = mpx_lib.select_hypotheses(raw, sel)
+        else:
+            sel = torch.arange(G, device=flat.device)[:, None].expand(G, flat.shape[0])
+        if mp.az_el_cam:
+            quat_bias = None
+            if mp.az_el_quat_bias:
+                quat_bias = cam_utils.az_el_quat_biases_on(G, raw.device)[sel]
+            cams = cam_utils.decode_az_el_camera(
+                raw, scale_lr_decay=mp.scale_lr_decay, scale_bias=mp.scale_bias,
+                az_range_deg=mp.az_euler_range, el_range_deg=mp.el_euler_range,
+                cyc_range_deg=mp.cyc_euler_range, quat_bias=quat_bias)
+        else:
+            cams = cam_utils.decode_quat_camera(raw, scale_lr_decay=mp.scale_lr_decay)
+        mirror = batch["mirror_flag"].reshape(-1).to(cams.dtype)
+        cams = cam_utils.mirror_camera(cams, mirror[None].expand(cams.shape[:2]))
+        transforms = batch["transforms"].reshape(1, -1, 4)
+        cams = cam_utils.transform_camera(cams, transforms.expand(cams.shape[:2] + (4,)))
+    tracing.count_traced("multiplex.views", cams.shape[0] * cams.shape[1])
     return cams, sel
 
 
@@ -451,7 +455,9 @@ def make_train_step(mods: MFModules, *, k: int, drop_deform: bool = True,
     and the metrics are the global means. The forward, the backward and the
     update (from the dense gradients through the write-back) are the spans
     `train.forward`, `train.backward` and `train.optimizer` of unit
-    mods.step (utils/tracing.py)."""
+    mods.step (utils/tracing.py); inside them lie `multiplex.select`
+    (decode_selected_cameras) and `multiplex.writeback` (the probabilities'
+    write-back)."""
 
     def train_step(batch: dict) -> dict:
         mods.opt.zero_grad(set_to_none=True)
@@ -466,8 +472,9 @@ def make_train_step(mods: MFModules, *, k: int, drop_deform: bool = True,
                 pmesh.all_reduce_grads(_opt_params(mods.opt))
             _set_lr(mods)
             mods.opt.step()
-            mpx_lib.scatter_probs(mods.mpx.state(), batch["frames_idx"], aux["sel"],
-                                  aux["probs"])
+            with tracing.span("multiplex.writeback", mods.step):
+                mpx_lib.scatter_probs(mods.mpx.state(), batch["frames_idx"], aux["sel"],
+                                      aux["probs"])
         mods.step += 1
         return pmesh.reduce_metrics({name: v.detach() for name, v in aux["metrics"].items()})
 
@@ -496,7 +503,8 @@ def make_warmup_step(mods: MFModules):
         mods.mpx.cams.grad = None
         G, BT = probs.shape
         sel = torch.arange(G, device=probs.device)[:, None].expand(G, BT)
-        mpx_lib.scatter_probs(mpx, batch["frames_idx"], sel, probs)
+        with tracing.span("multiplex.writeback", mods.step):
+            mpx_lib.scatter_probs(mpx, batch["frames_idx"], sel, probs)
         mods.step += 1
         return pmesh.reduce_metrics({"warmup_loss": loss.detach()})
 

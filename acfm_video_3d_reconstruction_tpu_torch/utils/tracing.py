@@ -16,14 +16,17 @@ option to set; record every thread's spans with the profiler's
   allocation.
 * `count(name, n=1)`: a host counter, always on (the kernels' launches are
   `launch.<kernel>`).
+* `count_traced(name, n=1)`: a host counter of the session: it adds `n`
+  while tracing is on and reads one flag otherwise (the multiplex's views,
+  the mask-only clips of the batches).
 * `count_device(name, tensor)`: adds `tensor`'s sum into a counter on its
   device while tracing is on; nothing is read back until `counters()`.
 
-The record and the device counters hold one profiling session: the first
-span or device count after the profiler turned on clears what an earlier
-session left, once that session was read (`record()`, `counters()`) or
-one of its spans ended after the profiler stopped; until then it stays in
-memory.
+The record and the session's counters (device and traced host) hold one
+profiling session: the first span or count of them after the profiler
+turned on clears what an earlier session left, once that session was read
+(`record()`, `counters()`) or one of its spans ended after the profiler
+stopped; until then it stays in memory.
 """
 from __future__ import annotations
 
@@ -56,6 +59,7 @@ class _Registry:
         self.lock = threading.Lock()
         self.host = {}
         self.device = {}  # (name, device) -> int64 tensor
+        self.traced = {}  # the session's host counters
         self.spans = []
         self.ids = itertools.count()
         self.local = threading.local()
@@ -68,6 +72,7 @@ class _Registry:
                 if not self.live:
                     self.spans = []
                     self.device = {}
+                    self.traced = {}
                     self.live = True
 
     def stack(self) -> list:
@@ -133,6 +138,15 @@ def count(name: str, n: int = 1) -> None:
         _REG.host[name] = _REG.host.get(name, 0) + n
 
 
+def count_traced(name: str, n: int = 1) -> None:
+    """While tracing is on, add `n` to the session's host counter `name`."""
+    if not _profiler._is_profiler_enabled:
+        return
+    _REG.begin()
+    with _REG.lock:
+        _REG.traced[name] = _REG.traced.get(name, 0) + n
+
+
 def count_device(name: str, tensor: torch.Tensor) -> None:
     """While tracing is on, add the sum of `tensor` (integers or booleans)
     to the device counter `name`, on `tensor`'s device, without a read."""
@@ -158,11 +172,13 @@ def record() -> list:
 
 
 def counters() -> dict:
-    """Every counter: the host counters, and the session's device counters
-    (read back here, summed over devices)."""
+    """Every counter: the host counters, the session's traced host counters,
+    and its device counters (read back here, summed over devices)."""
     _REG.read()
     with _REG.lock:
         out = dict(_REG.host)
+        for name, n in _REG.traced.items():
+            out[name] = out.get(name, 0) + n
         device = list(_REG.device.items())
     for (name, _), acc in device:
         out[name] = out.get(name, 0) + int(acc.item())
@@ -174,6 +190,7 @@ def reset() -> None:
     with _REG.lock:
         _REG.host = {}
         _REG.device = {}
+        _REG.traced = {}
         _REG.spans = []
         _REG.live = False
 

@@ -37,6 +37,8 @@ torch.set_num_threads(1)
 
 IMG, G, B, T, N_FRAMES, STEPS = 64, 2, 2, 2, 8, 3
 LOOP = {"train.forward", "train.backward", "train.optimizer"}
+# inside train.forward and train.optimizer
+MULTIPLEX = {"multiplex.select": "train.forward", "multiplex.writeback": "train.optimizer"}
 PREFETCH = {"data.load", "data.upload", "flow.infer"}
 REQUEST = {"data.decode", "data.crop", "data.mask_geometry", "predict"}
 
@@ -154,10 +156,11 @@ def test_every_span_lands_on_its_thread_under_the_profiler(monkeypatch, cub_root
     upload, then make_flow_fn's function with the net's pass stubbed), and
     one request of the prediction path inside a span of the test's own:
     every span of the port is in the record and in the profiler's events
-    as acfm.<name>; train.* on the loop's thread with unit mods.step,
-    data.load / data.upload / flow.infer on the prefetch thread, the
-    request's spans on the caller's thread as children of the test's span,
-    whose self time is its duration less theirs."""
+    as acfm.<name>; train.* and multiplex.* (inside train.forward and
+    train.optimizer) on the loop's thread with unit mods.step, data.load /
+    data.upload / flow.infer on the prefetch thread, the request's spans
+    on the caller's thread as children of the test's span, whose self time
+    is its duration less theirs."""
     mods = tmf.build(_mf_cfg(), ttemplate.build_template(subdivide=1, num_lbs=6, tex_size=2,
                                                           num_kps=0), N_FRAMES, device="cpu")
     mono = _mono_mods(cub_root)
@@ -179,11 +182,14 @@ def test_every_span_lands_on_its_thread_under_the_profiler(monkeypatch, cub_root
     by_name = {}
     for s in spans:
         by_name.setdefault(s.name, []).append(s)
-    assert set(by_name) == LOOP | PREFETCH | REQUEST | {"test.request"}
+    assert set(by_name) == LOOP | set(MULTIPLEX) | PREFETCH | REQUEST | {"test.request"}
     main = threading.current_thread().name
-    for name in LOOP:
+    for name in LOOP | set(MULTIPLEX):
         assert [s.unit for s in by_name[name]] == list(range(STEPS))
         assert {s.thread for s in by_name[name]} == {main}
+    ids = {s.id: s.name for s in spans}
+    for name, parent in MULTIPLEX.items():
+        assert {ids[s.parent] for s in by_name[name]} == {parent}
     for name in PREFETCH:
         assert {s.thread for s in by_name[name]} == {"acfm-prefetch"}, name
     assert len(by_name["flow.infer"]) == len(by_name["data.upload"]) == STEPS
@@ -203,7 +209,8 @@ def test_every_span_lands_on_its_thread_under_the_profiler(monkeypatch, cub_root
     for e in prof.events():
         if e.name.startswith(tracing.PREFIX):
             events.setdefault(e.name[len(tracing.PREFIX):], set()).add(e.thread)
-    seen = LOOP | REQUEST | {"test.request"} | (PREFETCH if all_threads else set())
+    seen = LOOP | set(MULTIPLEX) | REQUEST | {"test.request"} | (PREFETCH if all_threads
+                                                                  else set())
     assert seen <= set(events)
     if all_threads:
         (loop_thread,) = events["train.forward"]
