@@ -10,6 +10,15 @@ reasons): the net emits (dy, dx); these functions emit (dx, dy), each
 rescaled to output pixels. Layouts are the JAX package's too: images in as
 (B, H, W, 3) or (B, T, H, W, 3), flows out as (B, [T,] H, W, 2). `net` is
 a flow.maskflownet.MaskFlownet (see `build`); inputs go to its device.
+
+make_flow_fn's function, the multiframe trainer's and TTO's flow pass, runs
+`clip_flows` through flow_graph.py: on clips already on a CUDA device the
+pass is replayed as a CUDA graph, since its ~4,800 small kernels keep the
+host launching far longer than the device computes (the trainer runs the
+pass on its prefetch thread, beside the step on one interpreter). The graph
+holds the eager pass's kernels in the same order, so the flows are the
+eager pass's bit for bit. `clip_flows`, `predict_pair_flow` and the flow
+CLI's `predict_flow_native` stay eager.
 """
 from __future__ import annotations
 
@@ -19,13 +28,14 @@ import numpy as np
 import torch
 
 from ..utils import tracing
+from . import flow_graph
 from . import maskflownet as mfn
 from . import ops
 
 NET_H, NET_W = 384, 768
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _resize_weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
     """(n_in, n_out) weights of jax.image.resize(..., "bilinear") along one
     axis (antialias=True, its default: a triangle kernel widened by the
@@ -35,7 +45,8 @@ def _resize_weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor
     0.5, and the division by the kernel scale as a multiplication by its
     reciprocal. Sample positions reach n_in in f32, so a separately rounded
     product moves a weight by up to ~1e-5. Built once per (sizes, device)
-    and shared: callers must not write to it."""
+    and shared: callers must not write to it. Kept for the process: a
+    captured flow graph (flow_graph.py) reads it by its address."""
     f32 = np.float32
     inv_scale = f32(1.0 / (n_out / n_in))
     kernel_scale = max(inv_scale, f32(1.0))
@@ -194,12 +205,20 @@ def make_flow_fn(net: mfn.MaskFlownet, image_size: int,
                  net_hw: tuple[int, int] = (NET_H, NET_W)):
     """Batch preprocessor: attach batch['optical_flows'] from a frozen
     MaskFlownet pass over every consecutive frame pair (reference set_input,
-    multiframe/main.py:385-411), in the span `flow.infer`."""
+    multiframe/main.py:385-411), in the span `flow.infer`.
+
+    On a batch whose clips are on a CUDA device, `clip_flows` is replayed
+    as a CUDA graph (flow_graph.py), captured at the first call of each
+    signature: one launch in place of the pass's thousands, so the thread
+    that runs the pass (the trainer's prefetch thread) leaves the host to
+    the step. The flows equal the eager pass's bit for bit; each call
+    returns tensors of its own."""
 
     def flow_fn(batch: dict) -> dict:
         with tracing.span("flow.infer"):
             batch = dict(batch)
-            batch["optical_flows"] = clip_flows(net, batch["img"], image_size, net_hw)
+            batch["optical_flows"] = flow_graph.run(clip_flows, net, batch["img"],
+                                                    image_size, net_hw)
             return batch
 
     return flow_fn

@@ -2586,15 +2586,19 @@ def deterministic_algorithms(torch):
 @contextlib.contextmanager
 def plain_correlation():
     """Within the block the cost volume runs correlation_plain on CUDA
-    tensors too (no kernel launch, no count): the flow path's reference."""
+    tensors too (no kernel launch, no count): the flow path's reference.
+    make_flow_fn's pass runs eagerly there, neither captured nor replayed
+    (flow/flow_graph.py): a graph holds the kernel's launches."""
     from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
+    from acfm_video_3d_reconstruction_tpu_torch.flow import flow_graph
 
-    kernel = cc.correlation_cuda
+    kernel, run = cc.correlation_cuda, flow_graph.run
     cc.correlation_cuda = cc.correlation_plain
+    flow_graph.run = lambda pass_fn, net, imgs, size, net_hw: pass_fn(net, imgs, size, net_hw)
     try:
         yield
     finally:
-        cc.correlation_cuda = kernel
+        cc.correlation_cuda, flow_graph.run = kernel, run
 
 
 def _conv_flops(torch, net, call) -> int:
@@ -2653,7 +2657,8 @@ def phase_flow(torch, device, profile):
     log(f"[flow] make_flow_fn kernel path vs correlation_plain: rel err {rel:.3g}; kernel path "
         f"vs itself {floor:.3g}; flow |dx|, |dy| means {out[:, 0].abs().mean((0, 1, 2)).tolist()}")
     require(rel <= 1e-4, f"flow kernel vs plain: rel error {rel} > 1e-4")
-    flops = _conv_flops(torch, net, call)
+    # the eager pass: the net's forward hooks see no replay
+    flops = _conv_flops(torch, net, lambda: infer.clip_flows(net, clips, IMG, FLOW_NET_HW))
     log(f"[flow] {flops / 1e12:.4f} TFLOP of convolutions per make_flow_fn call, "
         f"{flops * rate / FLOW_B / 1e12:.2f} TFLOP/s at the median window")
     if profile:
