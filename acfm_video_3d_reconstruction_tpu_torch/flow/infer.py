@@ -12,13 +12,10 @@ rescaled to output pixels. Layouts are the JAX package's too: images in as
 a flow.maskflownet.MaskFlownet (see `build`); inputs go to its device.
 
 make_flow_fn's function, the multiframe trainer's and TTO's flow pass, runs
-`clip_flows` through flow_graph.py: on clips already on a CUDA device the
-pass is replayed as a CUDA graph, since its ~4,800 small kernels keep the
-host launching far longer than the device computes (the trainer runs the
-pass on its prefetch thread, beside the step on one interpreter). The graph
-holds the eager pass's kernels in the same order, so the flows are the
-eager pass's bit for bit. `clip_flows`, `predict_pair_flow` and the flow
-CLI's `predict_flow_native` stay eager.
+`clip_flows` through utils/graphs.py: on clips already on a CUDA device the
+pass (~4,800 small kernels) is replayed as a CUDA graph, bit-equal to the
+eager pass. `clip_flows`, `predict_pair_flow` and the flow CLI's
+`predict_flow_native` stay eager.
 """
 from __future__ import annotations
 
@@ -27,8 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from ..utils import tracing
-from . import flow_graph
+from ..utils import graphs, tracing
 from . import maskflownet as mfn
 from . import ops
 
@@ -46,7 +42,7 @@ def _resize_weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor
     reciprocal. Sample positions reach n_in in f32, so a separately rounded
     product moves a weight by up to ~1e-5. Built once per (sizes, device)
     and shared: callers must not write to it. Kept for the process: a
-    captured flow graph (flow_graph.py) reads it by its address."""
+    captured flow graph (make_flow_fn) reads it by its address."""
     f32 = np.float32
     inv_scale = f32(1.0 / (n_out / n_in))
     kernel_scale = max(inv_scale, f32(1.0))
@@ -201,24 +197,35 @@ def load_flow_checkpoint(path: str) -> dict[str, torch.Tensor]:
     return out
 
 
+def graph_signature(net: mfn.MaskFlownet, imgs: torch.Tensor, image_size: int, net_hw) -> tuple:
+    """(the clips' shape, dtype and device and the sizes, the net's
+    parameters and buffers): make_flow_fn's part of its graphs' signature."""
+    own = tuple(imgs.shape), str(imgs.dtype), str(imgs.device), image_size, tuple(net_hw)
+    return own, graphs.read_tensors(net)
+
+
 def make_flow_fn(net: mfn.MaskFlownet, image_size: int,
                  net_hw: tuple[int, int] = (NET_H, NET_W)):
     """Batch preprocessor: attach batch['optical_flows'] from a frozen
     MaskFlownet pass over every consecutive frame pair (reference set_input,
     multiframe/main.py:385-411), in the span `flow.infer`.
 
-    On a batch whose clips are on a CUDA device, `clip_flows` is replayed
-    as a CUDA graph (flow_graph.py), captured at the first call of each
-    signature: one launch in place of the pass's thousands, so the thread
-    that runs the pass (the trainer's prefetch thread) leaves the host to
-    the step. The flows equal the eager pass's bit for bit; each call
-    returns tensors of its own."""
+    On clips that are a CUDA tensor, `clip_flows` is replayed as a CUDA
+    graph (utils/graphs.py; counters `flow.*`) on a static input that each
+    call's clips are copied into, device to device: one launch for the
+    pass's thousands, so the prefetch thread that runs it leaves the host to
+    the step. A net keeps its graphs across the trainer's epochs."""
 
     def flow_fn(batch: dict) -> dict:
         with tracing.span("flow.infer"):
-            batch = dict(batch)
-            batch["optical_flows"] = flow_graph.run(clip_flows, net, batch["img"],
-                                                    image_size, net_hw)
-            return batch
+            imgs = batch["img"]
+            flows = graphs.run(
+                "flow", net, imgs.device if torch.is_tensor(imgs) else torch.device("cpu"),
+                lambda: graph_signature(net, imgs, image_size, net_hw),
+                eager=lambda: clip_flows(net, imgs, image_size, net_hw),
+                static=lambda: torch.empty(imgs.shape, dtype=torch.float32, device=imgs.device),
+                load=lambda inputs: inputs.copy_(imgs),
+                fn=lambda inputs: clip_flows(net, inputs, image_size, net_hw))
+            return dict(batch, optical_flows=flows)
 
     return flow_fn

@@ -584,8 +584,9 @@ def plain_rasterizer():
 
 # the kernels whose launches utils/tracing.py counts, as `launch.<kernel>`
 KERNELS = ("soft", "hard", "soft_bwd", "corr_md4", "corr_md2")
-# the launch counts that zero_launches() last read
+# the launch counts and flow graph captures that zero_launches() last read
 _ZERO = dict.fromkeys(KERNELS, 0)
+_ZERO_CAPTURES = [0]
 
 
 def _launch_counts() -> dict:
@@ -595,8 +596,24 @@ def _launch_counts() -> dict:
     return {k: counts.get(f"launch.{k}", 0) for k in KERNELS}
 
 
+def _flow_captures() -> int:
+    from acfm_video_3d_reconstruction_tpu_torch.utils import tracing
+
+    return tracing.counters().get("flow.graph_captures", 0)
+
+
 def zero_launches() -> None:
     _ZERO.update(_launch_counts())
+    _ZERO_CAPTURES[0] = _flow_captures()
+
+
+def flow_passes(n_calls: int) -> int:
+    """The flow passes that ran in n_calls calls of make_flow_fn's function
+    since zero_launches(): each graph captured meanwhile (utils/graphs.py)
+    ran WARMUP_RUNS eager passes first, whose cost volumes count."""
+    from acfm_video_3d_reconstruction_tpu_torch.utils import graphs
+
+    return n_calls + graphs.WARMUP_RUNS * (_flow_captures() - _ZERO_CAPTURES[0])
 
 
 def read_launches() -> dict:
@@ -1412,11 +1429,12 @@ def phase_multiframe(torch, device, card, tmp, profile=None, **overrides):
         require(checkpoints.exists(o["checkpoint_dir"], "smoke", label),
                 f"multiframe: checkpoint {label} not written")
     n_b = n_w + n_t
-    require(launches == only(soft=n_b, hard=n_t, soft_bwd=n_b, corr_md4=5 * n_b,
-                             corr_md2=10 * n_b),
+    n_f = flow_passes(n_b)
+    require(launches == only(soft=n_b, hard=n_t, soft_bwd=n_b, corr_md4=5 * n_f,
+                             corr_md2=10 * n_f),
             f"multiframe launches {launches} != per warm-up step 1 soft + 1 soft_bwd, per "
-            f"train step 1 soft + 1 hard + 1 soft_bwd, per batch 15 cost volumes "
-            f"({n_w} warm-up and {n_t} train steps)")
+            f"train step 1 soft + 1 hard + 1 soft_bwd, per flow pass 15 cost volumes "
+            f"({n_w} warm-up and {n_t} train steps, {n_f} flow passes)")
     require(main_recs[0]["of_loss"] > 0, "multiframe: of_loss is zero")
     log(f"[multiframe] train (CLI defaults G={G} B={B} T={T} {S}^2, "
         f"{mods.template.num_verts} verts, {mods.template.num_faces} faces, flow net "
@@ -1818,8 +1836,9 @@ def phase_evaluate(torch, device, card, train_opts, tmp, profile=None):
         npz = np.load(os.path.join(o["results_dir"], "results.npz"))
         require(sorted(npz.files) == EVAL_KEYS, f"evaluate {tag}: results.npz keys {npz.files}")
         if o["optimize"]:
+            n_f = flow_passes(n_b)
             want = only(soft=n_b * (N + 2), hard=n_b * (N + 1), soft_bwd=n_b * N,
-                        corr_md4=5 * n_b, corr_md2=10 * n_b)
+                        corr_md4=5 * n_f, corr_md2=10 * n_f)
             require(len(calls) == n_b and all(c[1] < c[0] for c in calls),
                     f"evaluate {tag}: TTO loss (iteration 0, final, s) per batch {calls}")
         else:
@@ -2588,17 +2607,17 @@ def plain_correlation():
     """Within the block the cost volume runs correlation_plain on CUDA
     tensors too (no kernel launch, no count): the flow path's reference.
     make_flow_fn's pass runs eagerly there, neither captured nor replayed
-    (flow/flow_graph.py): a graph holds the kernel's launches."""
+    (utils/graphs.py): a graph holds the kernel's launches."""
     from acfm_video_3d_reconstruction_tpu_torch.flow import correlation_cuda as cc
-    from acfm_video_3d_reconstruction_tpu_torch.flow import flow_graph
+    from acfm_video_3d_reconstruction_tpu_torch.utils import graphs
 
-    kernel, run = cc.correlation_cuda, flow_graph.run
+    kernel, run = cc.correlation_cuda, graphs.run
     cc.correlation_cuda = cc.correlation_plain
-    flow_graph.run = lambda pass_fn, net, imgs, size, net_hw: pass_fn(net, imgs, size, net_hw)
+    graphs.run = lambda name, owner, device, signature, eager, **_: eager()
     try:
         yield
     finally:
-        cc.correlation_cuda, flow_graph.run = kernel, run
+        cc.correlation_cuda, graphs.run = kernel, run
 
 
 def _conv_flops(torch, net, call) -> int:
@@ -2786,7 +2805,8 @@ def _par_rank(device, work):
         zero_launches()
         steps = checks.run_rank(prog, work, "par")
         launches = read_launches()
-    return {"steps": steps, "launches": launches}
+        warmups = flow_passes(0)
+    return {"steps": steps, "launches": launches, "flow_warmups": warmups}
 
 
 @contextlib.contextmanager
@@ -2871,6 +2891,8 @@ def phase_parallel(torch, device, card, mf_run, tmp, profile=None):
         return {k: float(v) for k, v in metrics.items()}, checks.flat(prog.state()), launches
 
     db = flow_fn(dict(upload))
+    with deterministic_algorithms(torch):  # its own flow graph, captured outside the count
+        flow_fn(dict(upload))
     alone = one_step()
     prog.load(state0, keep_probs=False)
     ms_alone = _step_ms(torch, step, db, PAR_TIMED + 1)[1:]  # the first warms up
@@ -2961,7 +2983,8 @@ def phase_parallel(torch, device, card, mf_run, tmp, profile=None):
     n_steps = len(prog.steps)
     del prog
     for r, out in enumerate(ranks_out):
-        want = only(soft=3, hard=2, soft_bwd=3, corr_md4=15, corr_md2=30)
+        n_f = 3 + out["flow_warmups"]
+        want = only(soft=3, hard=2, soft_bwd=3, corr_md4=5 * n_f, corr_md2=10 * n_f)
         require(out["launches"] == want,
                 f"parallel rank {r}: launches {out['launches']} != {want}")
     reports = []

@@ -1,8 +1,8 @@
 """make_flow_fn's MaskFlownet pass replayed as a CUDA graph
-(flow/flow_graph.py).
+(flow/infer.py through utils/graphs.py).
 
-On the CPU: how a call runs (`choose`), the signature a graph is kept
-under (`graph_key`), and make_flow_fn's flows against clip_flows bit for
+On the CPU: the signature a graph is kept under (`graph_signature` in
+graphs.graph_key), and make_flow_fn's flows against clip_flows bit for
 bit with no graph made. On the card, at the multiframe trainer's shapes
 (8 clips x 2 frames at 256^2, the net at 384x768, seeded weights): replay
 against the eager pass bit for bit, flows that later calls leave alone, a
@@ -20,10 +20,9 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from acfm_video_3d_reconstruction_tpu_torch.flow import flow_graph as fg
 from acfm_video_3d_reconstruction_tpu_torch.flow import infer as tinfer
 from acfm_video_3d_reconstruction_tpu_torch.flow import maskflownet as tmfn
-from acfm_video_3d_reconstruction_tpu_torch.utils import tracing
+from acfm_video_3d_reconstruction_tpu_torch.utils import graphs, tracing
 
 torch.set_num_threads(1)
 
@@ -60,20 +59,8 @@ def cpu_net():
     return _net()
 
 
-@pytest.mark.parametrize("device_type, tracing_on, captured, want", [
-    ("cpu", False, False, "eager"),
-    ("cpu", True, False, "eager"),
-    ("cpu", False, True, "eager"),
-    ("cpu", True, True, "eager"),
-    ("cuda", False, False, "capture"),
-    ("cuda", True, False, "eager"),
-    ("cuda", False, True, "replay"),
-    ("cuda", True, True, "replay"),
-])
-def test_choose(device_type, tracing_on, captured, want):
-    """Eager on the CPU, and while tracing is on with no graph yet: tracing
-    never captures."""
-    assert fg.choose(device_type, tracing_on, captured) == want
+def _key(net, imgs, size, net_hw) -> tuple:
+    return graphs.graph_key(*tinfer.graph_signature(net, imgs, size, net_hw))
 
 
 @pytest.mark.parametrize("change", [
@@ -85,7 +72,7 @@ def test_graph_key_changes(monkeypatch, change):
     algorithms turned on or off."""
     net = _net()
     imgs, size, net_hw = _clips(0, 2, CPU_IMG), CPU_IMG, CPU_NET_HW
-    before = fg.graph_key(net, imgs, size, net_hw)
+    before = _key(net, imgs, size, net_hw)
     if change == "shape":
         imgs = _clips(0, 3, CPU_IMG)
     elif change == "dtype":
@@ -109,25 +96,25 @@ def test_graph_key_changes(monkeypatch, change):
         was = torch.are_deterministic_algorithms_enabled()
         torch.use_deterministic_algorithms(not was)
         try:
-            assert fg.graph_key(net, imgs, size, net_hw) != before
+            assert _key(net, imgs, size, net_hw) != before
         finally:
             torch.use_deterministic_algorithms(was)
         return
-    assert fg.graph_key(net, imgs, size, net_hw) != before
+    assert _key(net, imgs, size, net_hw) != before
 
 
 def test_graph_key_holds_through_in_place_weight_load():
     """Other clips of the same shape, and another state dict loaded in place
     (load_state_dict copies into the tensors the net holds), keep the key."""
     net = _net()
-    before = fg.graph_key(net, _clips(0, 2, CPU_IMG), CPU_IMG, CPU_NET_HW)
+    before = _key(net, _clips(0, 2, CPU_IMG), CPU_IMG, CPU_NET_HW)
     net.load_state_dict(tmfn.init_params(torch.Generator().manual_seed(1)))
-    assert fg.graph_key(net, _clips(1, 2, CPU_IMG), CPU_IMG, CPU_NET_HW) == before
+    assert _key(net, _clips(1, 2, CPU_IMG), CPU_IMG, CPU_NET_HW) == before
 
 
 def test_read_tensors_cover_the_net(cpu_net):
     """Every parameter and buffer of the net, stage 1's included."""
-    got = {id(t) for t in fg.read_tensors(cpu_net)}
+    got = {id(t) for t in graphs.read_tensors(cpu_net)}
     assert {id(t) for t in cpu_net.parameters()} <= got
     assert {id(t) for t in cpu_net.buffers()} <= got
     assert {id(t) for t in cpu_net.MaskFlownet_S.parameters()} <= got
@@ -155,7 +142,7 @@ def test_cpu_flows_equal_clip_flows(cpu_net, traced):
         want = tinfer.clip_flows(cpu_net, b["img"], CPU_IMG, CPU_NET_HW)
         assert g.shape == (2, 2, CPU_IMG, CPU_IMG, 2)
         assert torch.equal(g, want)
-    assert id(cpu_net) not in fg._GRAPHS
+    assert id(cpu_net) not in graphs._GRAPHS
 
 
 def test_numpy_clips_run_eagerly(cpu_net):
@@ -295,20 +282,22 @@ def test_tracing_on_without_a_graph_runs_eagerly(cuda_device):
 
 
 @pytest.mark.cuda
-def test_launch_counters_count_one_pass_a_call(cuda_device):
-    """The cost volume's launch counters count 5 md=4 and 10 md=2 launches a
-    call, as the eager pass launches them, on the capturing call (its
-    warm-up runs and the capture take theirs back) and on each replay."""
+def test_launch_counters_count_the_kernels_that_ran(cuda_device):
+    """The cost volume's launch counters count the kernels that ran, 5 md=4
+    and 10 md=2 a pass, as the eager pass launches them: the capturing call
+    WARMUP_RUNS + 1 passes (its warm-up runs and the replay; the capture,
+    during which no kernel runs, takes its own back), each replay one."""
     net = _net(cuda_device)
     flow_fn = _flow_fn(net)
     imgs = _clips(7, B, IMG, cuda_device)
     before = _counters(CORR)
     _eager(net, imgs)
     assert _delta(before) == {"launch.corr_md4": 5, "launch.corr_md2": 10}
-    for n in (1, 2, 3):
+    for n, passes in ((1, graphs.WARMUP_RUNS + 1), (2, 1), (3, 1)):
         before = _counters(CORR)
         flow_fn({"img": imgs})
-        assert _delta(before) == {"launch.corr_md4": 5, "launch.corr_md2": 10}, f"call {n}"
+        assert _delta(before) == {"launch.corr_md4": 5 * passes,
+                                  "launch.corr_md2": 10 * passes}, f"call {n}"
 
 
 @pytest.mark.cuda
@@ -331,4 +320,4 @@ def test_in_place_weight_load_keeps_the_graph(cuda_device):
     got = flow_fn({"img": imgs})["optical_flows"]
     assert _delta(before)["flow.graph_captures"] == 1
     assert torch.equal(got, _eager(net, imgs))
-    assert len(fg._GRAPHS[id(net)]) == 1
+    assert len(graphs._GRAPHS[id(net)]) == 1

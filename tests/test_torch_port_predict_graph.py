@@ -1,8 +1,8 @@
 """predict_monocular's forward replayed as a CUDA graph
-(eval/predict_graph.py).
+(eval/predict_graph.py through utils/graphs.py).
 
-On the CPU: how a call runs (`choose`), the signature a graph is kept
-under (`graph_key`), the counters of eager calls, and predict_monocular
+On the CPU: the signature a graph is kept under (`graph_signature` in
+graphs.graph_key), the counters of eager calls, and predict_monocular
 against make_eval_step bit for bit. On the card, at the monocular CLI's
 configuration on CUB-format requests: replay against the eager forward bit
 for bit, outputs that later calls leave alone, an in-place weight reload,
@@ -26,7 +26,7 @@ from acfm_video_3d_reconstruction_tpu_torch.eval import predict_graph as pg
 from acfm_video_3d_reconstruction_tpu_torch.eval import predictor
 from acfm_video_3d_reconstruction_tpu_torch.models import template as ttemplate
 from acfm_video_3d_reconstruction_tpu_torch.train import monocular as tmono
-from acfm_video_3d_reconstruction_tpu_torch.utils import tracing
+from acfm_video_3d_reconstruction_tpu_torch.utils import graphs, tracing
 
 torch.set_num_threads(1)
 
@@ -79,19 +79,12 @@ def _delta(before: dict) -> dict:
 
 # -------------------------------------------------------------------- CPU --
 
-@pytest.mark.parametrize("device_type, tracing_on, captured, want", [
-    ("cpu", False, False, "eager"),
-    ("cpu", True, False, "eager"),
-    ("cpu", False, True, "eager"),
-    ("cuda", False, False, "capture"),
-    ("cuda", True, False, "eager"),
-    ("cuda", False, True, "replay"),
-    ("cuda", True, True, "replay"),
-])
-def test_choose(device_type, tracing_on, captured, want):
-    """Eager on the CPU, and while tracing is on with no graph yet: tracing
-    never captures."""
-    assert pg.choose(device_type, tracing_on, captured) == want
+def _key(mods, batch) -> tuple:
+    return graphs.graph_key(*pg.graph_signature(mods, batch))
+
+
+def _read(mods) -> list:
+    return pg.graph_signature(mods, _batch(0))[1]
 
 
 def _replace_parameter(mods):
@@ -110,14 +103,14 @@ def _replace_lpips_parameter(mods):
 
 @pytest.mark.parametrize("change", [
     "shape", "dtype", "parameter", "buffer", "lpips parameter", "matmul tf32", "cudnn tf32",
-    "autocast dtype"])
+    "cudnn enabled", "deterministic", "autocast dtype"])
 def test_graph_key_changes(cpu_mods, monkeypatch, change):
     """A new key for another batch shape or dtype, a replaced parameter or
-    buffer of the model or LPIPS, a flipped TF32 switch, another autocast
-    dtype."""
+    buffer of the model or LPIPS, a flipped TF32 or cuDNN switch,
+    deterministic algorithms turned on or off, another autocast dtype."""
     mods = copy.deepcopy(cpu_mods)
     batch = _batch(0)
-    before = pg.graph_key(mods, batch)
+    before = _key(mods, batch)
     if change == "shape":
         batch = _batch(0, n_bounds=N_BOUNDS + 1)
     elif change == "dtype":
@@ -134,27 +127,37 @@ def test_graph_key_changes(cpu_mods, monkeypatch, change):
     elif change == "cudnn tf32":
         monkeypatch.setattr(torch.backends.cudnn, "allow_tf32",
                             not torch.backends.cudnn.allow_tf32)
+    elif change == "cudnn enabled":
+        monkeypatch.setattr(torch.backends.cudnn, "enabled", not torch.backends.cudnn.enabled)
+    elif change == "deterministic":
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(not was)
+        try:
+            assert _key(mods, batch) != before
+        finally:
+            torch.use_deterministic_algorithms(was)
+        return
     else:
         mods.cfg = _cfg(dtype="bfloat16")
-    assert pg.graph_key(mods, batch) != before
+    assert _key(mods, batch) != before
 
 
 def test_graph_key_holds_through_in_place_weight_load(cpu_mods):
     """Another request of the same shapes, and new values copied into every
     parameter and buffer in place (as a weight load does), keep the key."""
     mods = copy.deepcopy(cpu_mods)
-    before = pg.graph_key(mods, _batch(0))
+    before = _key(mods, _batch(0))
     with torch.no_grad():
-        for t in pg.read_tensors(mods):
+        for t in _read(mods):
             if t.is_floating_point():
                 t.copy_(t * 0.5 + 0.25)
-    assert pg.graph_key(mods, _batch(1)) == before
+    assert _key(mods, _batch(1)) == before
 
 
 def test_read_tensors_cover_the_modules(cpu_mods):
     """Every parameter and buffer of the model and of LPIPS, and the faces,
     edges and Laplacian."""
-    got = {id(t) for t in pg.read_tensors(cpu_mods)}
+    got = {id(t) for t in _read(cpu_mods)}
     for net in (cpu_mods.model, cpu_mods.lpips):
         assert {id(t) for t in net.parameters()} <= got
         assert {id(t) for t in net.buffers()} <= got
@@ -272,7 +275,7 @@ def test_replay_equals_eager(cuda_device, cub_cell):
     after = tracing.counters()
     # eager: N_REQUESTS; graph: N_REQUESTS replays and the capture's warm-up
     for k in ("launch.soft", "launch.hard"):
-        assert after[k] - launches.get(k, 0) == 2 * N_REQUESTS + pg.WARMUP_RUNS, k
+        assert after[k] - launches.get(k, 0) == 2 * N_REQUESTS + graphs.WARMUP_RUNS, k
 
 
 @pytest.mark.cuda
