@@ -6,11 +6,21 @@ samples to numpy stacks, applies the DT/boundary preprocessing, and
 prepares the next batch on a thread so host preprocessing overlaps device
 compute (the reference's known CPU bottleneck: SURVEY.md §3.1). Boundary
 point lists are padded to a fixed size, so every batch has one shape.
+
+The producer thread is `acfm-loader`; each batch it builds is the span
+`data.batch` (utils/tracing.py). Where the dataset separates its draws from
+its work (`draw(idx)` / `build(idx, draws)`, data/tigdog.py), it takes a
+batch's draws in order and builds the clips, each with its mask geometry,
+on a pool of threads (`acfm-loader-pool_*`; the traced counter
+`data.pool_clips`): the same arithmetic on the same draws, so the same
+batches as one clip after another.
 """
 from __future__ import annotations
 
+import os
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional
 
 import numpy as np
@@ -124,6 +134,17 @@ def _mask_geometry(batch: dict, max_boundary_points: int) -> dict:
     return batch
 
 
+def pool_size(batch_size: int) -> int:
+    """Threads that build a batch's clips: the producer and its pool take
+    half the usable cores, the other half is left to the training loop's
+    thread, the prefetch thread and the CUDA driver; 0 (one clip after
+    another on the producer) where that leaves a single thread. On the
+    8 cores of an H100's host, pools of 2, 3 and 4 all kept the multiframe
+    loop fed, and 3 gave the loop its best mean rate."""
+    n = min(batch_size, len(os.sched_getaffinity(0)) // 2 - 1)
+    return n if n > 1 else 0
+
+
 class DataLoader:
     """Shuffling epoch iterator with threaded prefetch."""
 
@@ -157,32 +178,76 @@ class DataLoader:
             self.rng.shuffle(idx)
         return idx
 
-    def _make_batch(self, ids) -> dict:
-        batch = self.collate_fn([self.dataset[int(i)] for i in ids])
-        if self.preprocess is not None:
-            batch = self.preprocess(batch)
+    def _make_batch(self, ids, pool: Optional[ThreadPoolExecutor] = None) -> dict:
+        with tracing.span("data.batch"):
+            if pool is None or len(ids) < 2:
+                batch = self.collate_fn([self.dataset[int(i)] for i in ids])
+                return batch if self.preprocess is None else self.preprocess(batch)
+            return self._pooled_batch(ids, pool)
+
+    def _pooled_batch(self, ids, pool: ThreadPoolExecutor) -> dict:
+        """The batch's draws in order here, then each clip's build (and its
+        mask geometry, where the batch's is the default) on the pool."""
+        draws = [self.dataset.draw(int(i)) for i in ids]
+        per_clip = self.preprocess is add_mask_geometry and self.collate_fn is collate
+
+        def build(i, d):
+            s = self.dataset.build(int(i), d)
+            return s, (add_mask_geometry({"mask": s["mask"]}) if per_clip else None)
+
+        built = list(pool.map(build, ids, draws))
+        tracing.count_traced("data.pool_clips", len(built))
+        batch = self.collate_fn([s for s, _ in built])
+        if not per_clip:
+            return batch if self.preprocess is None else self.preprocess(batch)
+        for k in ("edt", "boundaries"):
+            batch[k] = np.concatenate([g[k] for _, g in built])
         return batch
 
     def __iter__(self) -> Iterator[dict]:
         idx = self._epoch_indices()
         nb = len(self)
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
 
         def producer():
+            split = hasattr(self.dataset, "draw") and hasattr(self.dataset, "build")
+            n = pool_size(self.batch_size) if split else 0
+            pool = ThreadPoolExecutor(n, thread_name_prefix="acfm-loader-pool") if n else None
             try:
                 for b in range(nb):
+                    if stop.is_set():
+                        return
                     ids = idx[b * self.batch_size : (b + 1) * self.batch_size]
-                    q.put(self._make_batch(ids))
-                q.put(None)
+                    if not put(self._make_batch(ids, pool)):
+                        return
+                put(None)
             except BaseException as e:  # propagate to the consumer
-                q.put(e)
+                put(e)
+            finally:
+                if pool is not None:
+                    pool.shutdown(cancel_futures=True)
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, name="acfm-loader", daemon=True)
         t.start()
-        while True:
-            item = q.get()
-            if item is None:
-                return
-            if isinstance(item, BaseException):
-                raise item
-            yield item
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            # ended, failed or abandoned: no thread of the epoch outlives it
+            stop.set()
+            t.join()

@@ -27,6 +27,7 @@ import glob
 import os
 import os.path as osp
 import pickle
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -190,8 +191,31 @@ def _tight_bbox(mask: np.ndarray) -> np.ndarray:
     return np.asarray([xs.min(), ys.min(), xs.max(), ys.max()], np.float64)
 
 
+class ClipDraws(NamedTuple):
+    """The random draws of one clip (`MultiFrameDataset.draw`)."""
+
+    frames: list
+    bbox_draws: Optional[list]  # per frame, the 4 uniforms of peturb_bbox
+    mirror: bool
+    zoom: Optional[float]  # the affine's, None without transforms
+    shift: Optional[np.ndarray]
+
+
+class _Replay:
+    """Hands out draws taken earlier, in order, where a Generator's
+    `random()` is called."""
+
+    def __init__(self, values):
+        self.random = iter(values).__next__
+
+
 class MultiFrameDataset:
-    """Frame-level dataset sampling num_frames clips in a ±offset window."""
+    """Frame-level dataset sampling num_frames clips in a ±offset window.
+
+    `__getitem__(idx)` is `build(idx, draw(idx))`: `draw` takes the clip's
+    draws from `self.rng`, `build` does the work and draws nothing, so a
+    loader can take the draws of a batch in order and build its clips
+    concurrently (data/loader.py)."""
 
     def __init__(
         self,
@@ -257,7 +281,28 @@ class MultiFrameDataset:
         return frames
 
     def __getitem__(self, idx: int) -> dict:
+        return self.build(idx, self.draw(idx))
+
+    def draw(self, idx: int) -> ClipDraws:
+        """Every draw of clip `idx`, taken from `self.rng` in the order the
+        reference takes them: the window's frames, the 4 draws per frame
+        that `peturb_bbox` consumes (tight_bboxes), the mirror, the affine."""
         frames = self._select_frames(int(idx))
+        bbox_draws = None
+        if self.tight_bboxes:
+            bbox_draws = [[self.rng.random() for _ in range(4)] for _ in frames]
+        mirror = bool(self.mirror and self.rng.random() > 0.5)
+        zoom = shift = None
+        if self.transforms:
+            zoom = self.rng.uniform(0.8, 1.05)
+            shift = self.rng.uniform(-0.05, 0.05, 2)  # fraction of image size
+        return ClipDraws(frames, bbox_draws, mirror, zoom, shift)
+
+    def build(self, idx: int, draws: ClipDraws) -> dict:
+        """Clip `idx` from its `draws`: reads, crop, resize, mirror, affine,
+        keypoint normalisation. It draws nothing, so clips build in any
+        order or concurrently."""
+        frames = draws.frames
         imgs, masks, bboxes, kps, poses = [], [], [], [], []
         for f in frames:
             with open(osp.join(self.root, f"{f}.pkl"), "rb") as fh:
@@ -277,9 +322,9 @@ class MultiFrameDataset:
         if self.tight_bboxes:
             bboxes = [
                 image_utils.peturb_bbox(
-                    _tight_bbox(m), pf=self.padding_frac, jf=0, rng=self.rng
+                    _tight_bbox(m), pf=self.padding_frac, jf=0, rng=_Replay(d)
                 )
-                for m in masks
+                for m, d in zip(masks, draws.bbox_draws)
             ]
         bboxes = [image_utils.square_bbox(b) for b in bboxes]
 
@@ -318,7 +363,7 @@ class MultiFrameDataset:
 
         # clip-level mirror
         mirror_flag = np.zeros(T, np.int64)
-        if self.mirror and self.rng.random() > 0.5:
+        if draws.mirror:
             mirror_flag[:] = 1
             imgs = imgs[:, :, ::-1].copy()
             masks = masks[:, :, ::-1].copy()
@@ -336,9 +381,8 @@ class MultiFrameDataset:
         # clip-level random affine with camera-transport params
         transform_params = np.zeros((T, 4), np.float32)
         transform_params[:, 0] = 1.0
-        if self.transforms:
-            zoom = self.rng.uniform(0.8, 1.05)
-            shift = self.rng.uniform(-0.05, 0.05, 2)  # fraction of image size
+        if draws.zoom is not None:
+            zoom, shift = draws.zoom, draws.shift
             imgs, masks, kps = self._affine(imgs, masks, kps, zoom, shift)
             transform_params[:, 0] = zoom
             transform_params[:, 1] = 2.0 * shift[0]
