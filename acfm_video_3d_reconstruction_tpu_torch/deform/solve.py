@@ -40,9 +40,10 @@ def screened_poisson_solve(
     # cholesky_ex: the same factor without cholesky's check of `info`, a
     # read on the host that waits for the stream; a matrix that is not
     # positive definite gives a non-finite factor, as JAX's cho_factor does;
-    # while tracing is on such factors count as `solve.failures`
+    # while counts are taken (tracing, a graph's capture) such factors count
+    # as `solve.failures`
     chol, info = torch.linalg.cholesky_ex(M)
-    if tracing.on():
+    if tracing.counting():
         tracing.count_device("solve.failures", info != 0)
     rhs_flat = rhs.permute(1, 0, 2).reshape(V, B * 3)
     sol = torch.cholesky_solve(rhs_flat, chol)

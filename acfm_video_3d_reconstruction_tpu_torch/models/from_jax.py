@@ -173,7 +173,9 @@ def _load_adam(opt: torch.optim.Optimizer, moments: list, count: int) -> None:
             if tuple(np.shape(arr)) != tuple(p.shape):
                 raise ValueError(f"Adam {what}: shape {np.shape(arr)} vs {tuple(p.shape)}")
         opt.state[p] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
+            # a capturable Adam keeps its count on the parameter's device
+            "step": torch.tensor(float(count), dtype=torch.float32,
+                                 device=p.device if opt.defaults["capturable"] else None),
             "exp_avg": torch.tensor(np.asarray(mu), dtype=p.dtype, device=p.device),
             "exp_avg_sq": torch.tensor(np.asarray(nu), dtype=p.dtype, device=p.device),
         }

@@ -131,7 +131,7 @@ def _face_tables(verts, faces, image_size, tile_h, tile_w, K, margin):
         ov = _tile_overlap(verts, faces, image_size, tile_h, tile_w, margin)
     B, T, F = ov.shape
     c = torch.cumsum(ov.to(torch.int32), dim=-1)
-    if tracing.on():  # the faces past K, from each bin's overlap count
+    if tracing.counting():  # the faces past K, from each bin's overlap count
         tracing.count_device("raster.faces_dropped", (c[..., -1] - K).clamp_(min=0))
     pos = torch.where(ov & (c <= K), c - 1, K).long()  # slot K = dump
     idx = torch.full((B, T, K + 1), -1, dtype=torch.int32, device=verts.device)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 import os
 import os.path as osp
+import threading
 from typing import Optional
 
 import torch
@@ -196,7 +197,12 @@ def run_multiframe_training(
     optional weight loaders applied to the built modules. vis_fn(save_dir,
     step, batch): image panels every cfg.train.display_freq main-loop steps
     (train/visualize.py::make_multiframe_vis_fn when display_freq > 0 and
-    none is given). Returns the modules.
+    none is given). It may start or stop a torch profiler (a benchmark's
+    clock does), and a profiler's stop that meets a CUDA call in flight on
+    another thread can deadlock the two threads (a launch of the flow
+    pass's CUDA graph, utils/graphs.py, waits while the device's queue is
+    full), so the prefetch thread's upload and flow_fn and the loop's
+    vis_fn never run at once. Returns the modules.
     """
     tr = cfg.train
     mp = cfg.multiplex
@@ -223,9 +229,12 @@ def run_multiframe_training(
     if main:
         metrics_logger.dump_config(save_dir, cfg)
 
+    launching = threading.Lock()  # held by the prefetch thread's prep and by vis_fn
+
     def prep(batch):
-        db = mf.to_device_batch(mods, pmesh.shard_batch(batch))
-        return flow_fn(db) if flow_fn is not None else db
+        with launching:
+            db = mf.to_device_batch(mods, pmesh.shard_batch(batch))
+            return flow_fn(db) if flow_fn is not None else db
 
     if init_camera_emb and loader_noaug is not None:
         for batch in loader_noaug:
@@ -298,7 +307,8 @@ def run_multiframe_training(
             if tr.save_latest_freq > 0 and total_steps % tr.save_latest_freq == 0:
                 save("latest")
             if vis_fn is not None and tr.display_freq > 0 and total_steps % tr.display_freq == 0:
-                vis_fn(save_dir, total_steps, db)
+                with launching:
+                    vis_fn(save_dir, total_steps, db)
         if (epoch + 1) % tr.save_epoch_freq == 0:
             save("latest")
             save(epoch + 1)

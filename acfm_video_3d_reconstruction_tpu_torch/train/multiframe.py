@@ -47,7 +47,7 @@ from ..models.template import Template
 from ..multiplex import state as mpx_lib
 from ..ops import rasterizer as ras
 from ..parallel import mesh as pmesh
-from ..utils import tracing
+from ..utils import graphs, tracing
 from . import prefetch
 from .monocular import normalize_imagenet
 
@@ -100,7 +100,9 @@ def make_optimizer(cfg: cfg_lib.Config, model: MeshNet, mpx: Multiplex) -> torch
     parameters form a second group at camera_learning_rate (optax's
     multi_transform with the "camera" label: every leaf under a key that
     names camera_predictor); each group keeps its rate as "base_lr", which
-    multistep_lr scales (`_set_lr`)."""
+    multistep_lr scales (`_set_lr`). On CUDA the Adam is capturable (its
+    step counts on the device), so that the eager steps take the update
+    that the step's CUDA graph replays."""
     tr = cfg.train
     general, camera = [], []
     for name, p in model.named_parameters():
@@ -113,7 +115,8 @@ def make_optimizer(cfg: cfg_lib.Config, model: MeshNet, mpx: Multiplex) -> torch
     if camera:
         groups.append({"params": camera, "lr": tr.camera_learning_rate,
                        "base_lr": tr.camera_learning_rate, "label": "camera"})
-    return torch.optim.Adam(groups, betas=(tr.beta1, 0.999), eps=1e-8)
+    return torch.optim.Adam(groups, betas=(tr.beta1, 0.999), eps=1e-8,
+                            capturable=mpx.cams.is_cuda)
 
 
 def build(cfg: cfg_lib.Config, template: Template, num_frames_total: int, seed: int = 0,
@@ -431,11 +434,16 @@ def _opt_params(opt: torch.optim.Optimizer) -> list:
 def _set_lr(mods: MFModules) -> None:
     """multistep_lr: each group's rate is base_lr x gamma^(milestones passed),
     a milestone m passed from update m * steps_per_epoch on (0-based), as
-    optax.piecewise_constant_schedule counts."""
+    optax.piecewise_constant_schedule counts. The updates mods.opt took are
+    counted on the host: mods.step less the pose warm-up's steps (warm_opt
+    is not capturable, so its count is a host number); Adam's own counts
+    live on the device when it is capturable."""
     tr = mods.cfg.train
     if not tr.multistep_lr or not mods.steps_per_epoch:
         return
-    done = max((int(s["step"]) for s in mods.opt.state.values() if "step" in s), default=0)
+    warm = max((int(s["step"]) for s in mods.warm_opt.state.values() if "step" in s),
+               default=0)
+    done = mods.step - warm
     n = sum(done >= int(m) * mods.steps_per_epoch for m in tr.lr_milestones)
     for group in mods.opt.param_groups:
         group["lr"] = group["base_lr"] * tr.lr_gamma ** n
@@ -457,9 +465,16 @@ def make_train_step(mods: MFModules, *, k: int, drop_deform: bool = True,
     `train.forward`, `train.backward` and `train.optimizer` of unit
     mods.step (utils/tracing.py); inside them lie `multiplex.select`
     (decode_selected_cameras) and `multiplex.writeback` (the probabilities'
-    write-back)."""
+    write-back).
 
-    def train_step(batch: dict) -> dict:
+    On CUDA, outside a process group (whose steps run eagerly, with no
+    `train.*` count), the whole step replays as one CUDA graph
+    (utils/graphs.py's training case, counters `train.*`), which the
+    modules keep across the steps made here: the first call of a signature
+    is eager, the second captures (`graph_signature`). A replay records no
+    span of the step; its views and device counts still count."""
+
+    def step(batch: dict) -> dict:
         mods.opt.zero_grad(set_to_none=True)
         with tracing.span("train.forward", mods.step):
             loss, aux = forward(mods, batch, k=k, train=True, drop_deform=drop_deform,
@@ -470,15 +485,48 @@ def make_train_step(mods: MFModules, *, k: int, drop_deform: bool = True,
             _dense_grads(mods.opt)
             if pmesh.active():
                 pmesh.all_reduce_grads(_opt_params(mods.opt))
-            _set_lr(mods)
             mods.opt.step()
             with tracing.span("multiplex.writeback", mods.step):
                 mpx_lib.scatter_probs(mods.mpx.state(), batch["frames_idx"], aux["sel"],
                                       aux["probs"])
+        return {name: v.detach() for name, v in aux["metrics"].items()}
+
+    flags = (k, drop_deform, detach_camera, use_gtpose)
+
+    def train_step(batch: dict) -> dict:
+        def load(inputs: dict) -> None:
+            for name, v in batch.items():
+                inputs[name].copy_(v)
+
+        _set_lr(mods)
+        if pmesh.active():  # no collective is captured
+            metrics = step(batch)
+        else:
+            metrics = graphs.run(
+                "train", mods, mods.device, lambda: graph_signature(mods, batch, flags),
+                eager=lambda: step(batch),
+                static=lambda: {name: torch.empty_like(v) for name, v in batch.items()},
+                load=load, fn=step, train=True)
         mods.step += 1
-        return pmesh.reduce_metrics({name: v.detach() for name, v in aux["metrics"].items()})
+        return pmesh.reduce_metrics(metrics)
 
     return train_step
+
+
+def graph_signature(mods: MFModules, batch: dict, flags: tuple) -> tuple:
+    """The train step's part of its graph's key and the tensors the step
+    reads: (k, drop_deform, detach_camera, use_gtpose), the batch's names,
+    shapes and dtypes and each group's rate; the model's, LPIPS's and the
+    multiplex tables' parameters and buffers, the template's tensors and
+    Adam's state."""
+    own = (flags, tuple((name, tuple(v.shape), v.dtype) for name, v in batch.items()),
+           tuple(group["lr"] for group in mods.opt.param_groups))
+    nets = [mods.model, mods.mpx] + ([mods.lpips] if mods.lpips is not None else [])
+    cot = mods.cot
+    read = graphs.read_tensors(*nets) + [mods.faces, mods.edges, cot.a, cot.b, cot.fwd,
+                                         cot.bwd, cot.faces]
+    read += [t for s in mods.opt.state.values() for t in s.values() if torch.is_tensor(t)]
+    return own, read
 
 
 def make_warmup_step(mods: MFModules):

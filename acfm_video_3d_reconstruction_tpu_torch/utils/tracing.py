@@ -21,6 +21,12 @@ option to set; record every thread's spans with the profiler's
   the mask-only clips of the batches).
 * `count_device(name, tensor)`: adds `tensor`'s sum into a counter on its
   device while tracing is on; nothing is read back until `counters()`.
+* `collect()`: on its thread, for the life of the block, `count_traced`
+  and `count_device` go to the collection it returns, whether tracing is
+  on or not (a CUDA graph's capture, utils/graphs.py: the device counts
+  become the graph's outputs, which each replay under tracing adds to the
+  session). `counting()` says whether a count is taken on this thread:
+  callers that compute what they count only for it ask that.
 
 The record and the session's counters (device and traced host) hold one
 profiling session: the first span or count of them after the profiler
@@ -52,6 +58,11 @@ class Span(NamedTuple):
     end_ns: int
     parent: Optional[int]  # id of the enclosing span on the same thread
     unit: object
+
+
+class Collected(NamedTuple):
+    device: dict  # name -> int64 tensor: the sums the block counted
+    traced: dict  # name -> int
 
 
 class _Registry:
@@ -132,6 +143,28 @@ def span(name: str, unit=None):
     return _Span(name, unit)
 
 
+def _collection() -> Optional[Collected]:
+    return getattr(_REG.local, "collected", None)
+
+
+def counting() -> bool:
+    """Whether count_device and count_traced take a count on this thread:
+    tracing is on, or a collect() block is open."""
+    return _profiler._is_profiler_enabled or _collection() is not None
+
+
+@contextlib.contextmanager
+def collect():
+    """Within the block, this thread's count_traced and count_device calls
+    go to the Collected it yields, and not to the session."""
+    got = Collected({}, {})
+    _REG.local.collected = got
+    try:
+        yield got
+    finally:
+        _REG.local.collected = None
+
+
 def count(name: str, n: int = 1) -> None:
     """Add `n` to the host counter `name`."""
     with _REG.lock:
@@ -139,7 +172,12 @@ def count(name: str, n: int = 1) -> None:
 
 
 def count_traced(name: str, n: int = 1) -> None:
-    """While tracing is on, add `n` to the session's host counter `name`."""
+    """While tracing is on, add `n` to the session's host counter `name`
+    (within collect(), to the collection)."""
+    got = _collection()
+    if got is not None:
+        got.traced[name] = got.traced.get(name, 0) + n
+        return
     if not _profiler._is_profiler_enabled:
         return
     _REG.begin()
@@ -149,12 +187,17 @@ def count_traced(name: str, n: int = 1) -> None:
 
 def count_device(name: str, tensor: torch.Tensor) -> None:
     """While tracing is on, add the sum of `tensor` (integers or booleans)
-    to the device counter `name`, on `tensor`'s device, without a read."""
-    if not _profiler._is_profiler_enabled:
+    to the device counter `name`, on `tensor`'s device, without a read
+    (within collect(), the sum goes to the collection)."""
+    got = _collection()
+    if got is None and not _profiler._is_profiler_enabled:
         return
-    _REG.begin()
     with torch.no_grad():
         n = tensor.sum(dtype=torch.int64)
+        if got is not None:
+            got.device[name] = got.device[name] + n if name in got.device else n
+            return
+        _REG.begin()
         key = (name, n.device)
         acc = _REG.device.get(key)
         if acc is None:

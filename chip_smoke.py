@@ -571,15 +571,19 @@ def phase_small(torch, device):
 def plain_rasterizer():
     """Within the block, the rasterizer runs its plain versions, forward and
     backward, on CUDA tensors too (no kernel launch, no count): the main
-    paths' reference."""
+    paths' reference. The multiframe train step runs eagerly there, neither
+    captured nor replayed (utils/graphs.py): a graph holds the kernels'
+    launches."""
     from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer_cuda as rc
+    from acfm_video_3d_reconstruction_tpu_torch.utils import graphs
 
-    kernels = rc.forward_cuda, rc.backward_cuda
+    kernels, run = (rc.forward_cuda, rc.backward_cuda), graphs.run
     rc.forward_cuda, rc.backward_cuda = rc.forward_plain, rc.backward_plain
+    graphs.run = lambda name, owner, device, signature, eager, **_: eager()
     try:
         yield
     finally:
-        rc.forward_cuda, rc.backward_cuda = kernels
+        (rc.forward_cuda, rc.backward_cuda), graphs.run = kernels, run
 
 
 # the kernels whose launches utils/tracing.py counts, as `launch.<kernel>`
@@ -1597,8 +1601,12 @@ def _mf_sync_checks(torch, mods, batch, flow_fn, upload, k):
     step and one flow call of the trained modules on the run's first batch,
     nor in one train step of an az-el build of the same model (--az_el_cam
     --az_el_quat_bias: the bias table gathered per step) after its first
-    step (which builds the table once per device). Every launch uncounted.
-    Returns {call: number of synchronizing operations}, all 0."""
+    two steps (the first builds the table once per device, the second
+    captures the step's CUDA graph, utils/graphs.py: a capture synchronizes
+    the device before it begins, and CUDA refuses a synchronizing operation
+    inside it). The train steps checked are replays of the steps' graphs.
+    Every launch uncounted. Returns {call: number of synchronizing
+    operations}, all 0."""
     from acfm_video_3d_reconstruction_tpu_torch.train import multiframe as mf
 
     cfg = dataclasses.replace(mods.cfg, multiplex=dataclasses.replace(
@@ -1611,6 +1619,7 @@ def _mf_sync_checks(torch, mods, batch, flow_fn, upload, k):
              "az-el train step (--az_el_cam --az_el_quat_bias)": lambda: az_step(batch)}
     counts = {}
     with uncounted():
+        az_step(batch)
         az_step(batch)
         for what, call in calls.items():
             stacks = _sync_ops(torch, call)

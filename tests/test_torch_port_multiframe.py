@@ -56,6 +56,7 @@ from acfm_video_3d_reconstruction_tpu_torch.ops import rasterizer as tras
 from acfm_video_3d_reconstruction_tpu_torch.train import checkpoints
 from acfm_video_3d_reconstruction_tpu_torch.train import multiframe as tmf
 from acfm_video_3d_reconstruction_tpu_torch.train import schedules as tsched
+from acfm_video_3d_reconstruction_tpu_torch.utils import graphs
 
 torch.set_num_threads(1)
 
@@ -529,7 +530,8 @@ def _adam_switch(separate_camera_opt=False, multistep_lr=False):
     model = torch.nn.ModuleDict({"encoder": torch.nn.Linear(3, 2),
                                  "camera_predictor": torch.nn.Linear(2, 2)})
     mpx = tmf.Multiplex(tmpx.init_quat_multiplex(5, 3, 2, with_deform=False))
-    mods = SimpleMods(cfg_t, tmf.make_optimizer(cfg_t, model, mpx), steps_per_epoch=1)
+    mods = SimpleMods(cfg_t, tmf.make_optimizer(cfg_t, model, mpx),
+                      torch.optim.Adam([mpx.cams]), steps_per_epoch=1)
     tree = {"params": {name: {leaf: p.detach().numpy().copy() for leaf, p in m.named_parameters()}
                        for name, m in model.items()},
             "mpx": {"cams": mpx.cams.detach().numpy().copy()}}
@@ -540,7 +542,9 @@ def _adam_switch(separate_camera_opt=False, multistep_lr=False):
 class SimpleMods:
     cfg: object
     opt: torch.optim.Adam
+    warm_opt: torch.optim.Adam
     steps_per_epoch: int
+    step: int = 0
 
 
 @pytest.mark.parametrize("variant", ["plain", "separate_camera_opt", "multistep_lr"])
@@ -568,6 +572,7 @@ def test_adam_across_gtpose_switch_matches_optax(variant):
         tmf._dense_grads(mods.opt)
         tmf._set_lr(mods)
         mods.opt.step()
+        mods.step += 1
         g_tree = {"params": {n: {} for n in tree["params"]}, "mpx": {"cams": cams_g}}
         for name, g in grads.items():
             mod, leaf = name.split(".")
@@ -583,6 +588,65 @@ def test_adam_across_gtpose_switch_matches_optax(variant):
     assert {int(s["step"]) for s in mods.opt.state.values()} == {5}
     if variant == "separate_camera_opt":
         assert [g["label"] for g in mods.opt.param_groups] == ["general", "camera"]
+
+
+@pytest.mark.parametrize("warmup_steps", [0, 3])
+def test_set_lr_counts_milestones_from_the_step(warmup_steps):
+    """_set_lr counts the full optimizer's updates on the host: mods.step
+    less the pose warm-up's steps (warm_opt's own count), and never reads
+    the full Adam's step counts (capturable on CUDA: a device read). A
+    milestone m (epochs) scales the rates by gamma from update m x
+    steps_per_epoch on, as optax's piecewise schedule counts."""
+    mods, _, mpx, _, _ = _adam_switch(multistep_lr=True)
+    mods.steps_per_epoch = 2
+    for _ in range(warmup_steps):
+        mpx.cams.grad = torch.ones_like(mpx.cams)
+        mods.warm_opt.step()
+    mods.opt.state[mpx.cams] = {"step": "not read"}
+    gamma, base = mods.cfg.train.lr_gamma, mods.cfg.train.learning_rate
+    rates = []
+    for done in range(8):
+        mods.step = warmup_steps + done
+        tmf._set_lr(mods)
+        rates.append(mods.opt.param_groups[0]["lr"])
+    # milestones (1, 3) epochs at 2 updates an epoch: updates 2 and 6
+    want = [base] * 2 + [base * gamma] * 4 + [base * gamma ** 2] * 2
+    np.testing.assert_allclose(rates, want, rtol=1e-12)
+
+
+@pytest.mark.parametrize("change", ["k", "drop_deform", "detach_camera", "use_gtpose",
+                                    "batch shape", "rate", "parameter", "adam state"])
+def test_train_graph_key_changes(change):
+    """The train step's graph key (utils/graphs.py::graph_key of
+    multiframe.graph_signature): another k, drop_deform, detach_camera or
+    use_gtpose, another batch shape, a new group rate (a multistep_lr
+    milestone), a replaced parameter or Adam's state made by the first
+    update; another batch of the same shape keeps it."""
+    mods = tmf.build(_cfg(tcfg), ttemplate.build_template(**TEMPLATE), N_FRAMES, seed=3,
+                     device="cpu")
+    flags = (G, True, False, False)
+    batch = tmf.to_device_batch(mods, _batch(4))
+
+    def key(b=batch, f=flags):
+        return graphs.graph_key(*tmf.graph_signature(mods, b, f))
+
+    before = key()
+    assert key(tmf.to_device_batch(mods, _batch(5))) == before
+    if change in ("k", "drop_deform", "detach_camera", "use_gtpose"):
+        i = ("k", "drop_deform", "detach_camera", "use_gtpose").index(change)
+        after = key(f=flags[:i] + ((2 if i == 0 else not flags[i]),) + flags[i + 1:])
+    elif change == "batch shape":
+        after = key({k: v[:1] for k, v in batch.items()})
+    elif change == "rate":
+        mods.opt.param_groups[0]["lr"] *= 0.5
+        after = key()
+    elif change == "parameter":
+        mods.model.mean_v = torch.nn.Parameter(mods.model.mean_v.detach().clone())
+        after = key()
+    else:
+        tmf.make_train_step(mods, k=G)(batch)
+        after = key()
+    assert after != before
 
 
 def test_steps_count_every_parameter_across_the_switch(jax_build):

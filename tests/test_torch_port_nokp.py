@@ -385,7 +385,8 @@ def test_multiplex_spans_and_counters_under_the_profiler():
 def test_multiplex_spans_and_counters_keep_nothing_off(monkeypatch):
     """Without a profiler the same step opens no span (utils/tracing.py's
     _Span, patched to raise, is never built) and keeps no traced count;
-    the host counters count as ever."""
+    the host counters count as ever (the step's `train.eager_calls`, from
+    utils/graphs.py, among them)."""
     def refuse(*a, **k):
         raise AssertionError("a span opened with tracing off")
 
@@ -398,4 +399,4 @@ def test_multiplex_spans_and_counters_keep_nothing_off(monkeypatch):
     tracing.count_traced("data.mask_only_clips", 3)
     tracing.count("launch.soft")
     assert tracing.record() == []
-    assert tracing.counters() == {"launch.soft": 1}
+    assert tracing.counters() == {"launch.soft": 1, "train.eager_calls": 1}

@@ -292,3 +292,26 @@ def test_host_counters_lose_no_update_across_threads():
     finally:
         sys.setswitchinterval(old)
     assert tracing.counters()["x"] == n * each
+
+
+def test_collect_takes_this_threads_counts_off_the_session():
+    """Within collect() (a graph's capture) this thread counts with tracing
+    off, into the collection and not the session: the device counts as
+    tensors summed per name, the traced host counts as numbers; another
+    thread and the code after the block count as before."""
+    assert not tracing.counting()
+    other = []
+    with tracing.collect() as got:
+        assert tracing.counting()
+        tracing.count_device("raster.faces_dropped", torch.tensor([2, 0, 1]))
+        tracing.count_device("raster.faces_dropped", torch.tensor([4]))
+        tracing.count_traced("multiplex.views", 8)
+        tracing.count_traced("multiplex.views", 8)
+        t = threading.Thread(target=lambda: other.append(tracing.counting()))
+        t.start()
+        t.join()
+    assert not tracing.counting() and other == [False]
+    assert got.traced == {"multiplex.views": 16}
+    assert {k: int(v) for k, v in got.device.items()} == {"raster.faces_dropped": 7}
+    assert "raster.faces_dropped" not in tracing.counters()
+    assert "multiplex.views" not in tracing.counters()
